@@ -3,7 +3,7 @@
 // The reference's host runtime is C++ end-to-end; its loader story is
 // src/splat/file_io.cpp (+ happly). Our training extension streams posed
 // PNG images (io/dataset.py), and decoding them one-by-one through PIL is
-// the slowest part of dataset startup. This component is the TPU-side
+// the slowest part of dataset startup. This component is the host-side
 // equivalent of a native data loader: a worker pool that reads + inflates
 // (system zlib) + defilters + downscales PNGs concurrently, handing dense
 // float32 HWC buffers to Python through a C ABI (ctypes, io/native.py).

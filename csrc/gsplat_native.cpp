@@ -1,8 +1,8 @@
-// Native host runtime for the TPU gaussian-splat framework.
+// Native host runtime for the gaussian-splat framework.
 //
 // The reference implements its entire host runtime in C++ (loader:
 // src/splat/file_io.cpp + the vendored happly parser, include/happly.h,
-// ~2k LoC of row-wise field extraction). Device compute on TPU lives in
+// ~2k LoC of row-wise field extraction). Device compute lives in
 // XLA/Pallas; this library covers the host-side hot paths that feed it:
 //
 //   * deinterleave_f32 — strided extraction of k float32 fields from a

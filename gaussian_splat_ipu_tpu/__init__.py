@@ -1,4 +1,4 @@
-"""gaussian_splat_ipu_tpu — TPU-native 3D gaussian splatting framework.
+"""gaussian_splat_ipu_tpu — differentiable 3D gaussian splatting framework.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
 Nmjfry/gaussian_splat_ipu (a C++/Poplar IPU splat render server), extended

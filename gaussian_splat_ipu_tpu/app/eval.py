@@ -63,7 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(render_depth: alpha-composited mean depth)")
     p.add_argument("--device", default="pallas",
                    choices=["pallas", "jnp", "points"],
-                   help="render path (pallas = compiled TPU kernels)")
+                   help="render path (pallas = the rasterizer kernels, "
+                        "compiled on the GPU, interpreted on the CPU)")
     p.add_argument("--log-level", default="info")
     return p
 

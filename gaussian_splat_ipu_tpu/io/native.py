@@ -116,8 +116,8 @@ class ImagePrefetcher:
     submit() paths up front; fetch() blocks until that image is decoded
     (workers run ahead on the rest — the prefetch). A fetch whose status
     is nonzero (unsupported PNG flavour, JPEG, ...) returns None and the
-    caller falls back to PIL for that file. The prefetcher is the
-    TPU-framework analogue of the reference's native host loader
+    caller falls back to PIL for that file. The prefetcher is this
+    framework's analogue of the reference's native host loader
     (src/splat/file_io.cpp), extended to the training data path.
     """
 

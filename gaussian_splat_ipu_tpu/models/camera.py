@@ -3,7 +3,7 @@
 The reference streams three small tensors to the device per frame — the
 model-view matrix, the projection matrix and (fov, scale) focal params
 (src/splat/ipu_rasteriser.cpp:86-110, 265-278) — then Copy-broadcasts them to
-all 1440 tiles. On TPU a Camera is a tiny pytree of (4,4) matrices; under
+all 1440 tiles. Here a Camera is a tiny pytree of (4,4) matrices; under
 jit it is replicated across the mesh by a NamedSharding with no explicit
 broadcast program.
 """
@@ -51,7 +51,8 @@ class Camera:
     @property
     def view_proj(self) -> jnp.ndarray:
         return jnp.dot(self.proj, self.view,
-                       preferred_element_type=jnp.float32)
+                       preferred_element_type=jnp.float32,
+                       precision=jax.lax.Precision.HIGHEST)
 
     def focals(self, width: int, height: int):
         """Pixel focal lengths and fov tangents, derived from proj.
@@ -70,7 +71,8 @@ class Camera:
         """Camera position in world space (for SH view directions)."""
         r = self.view[:3, :3]
         t = self.view[:3, 3]
-        return -jnp.dot(r.T, t, preferred_element_type=jnp.float32)
+        return -jnp.dot(r.T, t, preferred_element_type=jnp.float32,
+                        precision=jax.lax.Precision.HIGHEST)
 
     # -- constructors -------------------------------------------------------
     @classmethod
@@ -128,9 +130,12 @@ class Camera:
         # synthesis with the orbit angles as traced scalars, so per-frame
         # camera math runs on-device instead of as eager host dispatches.
         view = transforms.look_at_bounding_box(bb_min, bb_max, up)
-        view = jnp.dot(view, transforms.rotate_x(jnp.radians(rot_x_deg)))
-        view = jnp.dot(view, transforms.rotate_y(jnp.radians(rot_y_deg)))
-        view = jnp.dot(view, transforms.translate(translation))
+        hp = jax.lax.Precision.HIGHEST
+        view = jnp.dot(view, transforms.rotate_x(jnp.radians(rot_x_deg)),
+                       precision=hp)
+        view = jnp.dot(view, transforms.rotate_y(jnp.radians(rot_y_deg)),
+                       precision=hp)
+        view = jnp.dot(view, transforms.translate(translation), precision=hp)
         # Project the world bb into eye space for frustum fitting, as the
         # reference does (src/main/splat.cpp:188-195).
         base = transforms.look_at_bounding_box(bb_min, bb_max, up)

@@ -1,11 +1,11 @@
 """Gaussian scene model: the trainable parameter pytree.
 
-TPU-native rebuild of the reference Gaussian3D record
+Rebuild of the reference Gaussian3D record
 (include/splat/ipu_geometry.hpp:305-323): where the reference packs each
 gaussian into a 64-float byte-strided record pinned in tile SRAM
 (src/splat/ipu_rasteriser.cpp:49-83), we keep a structure-of-arrays pytree —
-the layout XLA and the MXU/VPU want — sharded over devices with
-jax.sharding when the scene exceeds one chip.
+the layout XLA's vectorised code wants — sharded over devices with
+jax.sharding when the scene exceeds one device.
 
 Parameters follow standard 3DGS conventions:
   means       (N, 3) world-space centres
@@ -127,10 +127,10 @@ class GaussianModel:
         from zero), colour as the SH dc band, opacity at a uniform
         post-sigmoid `opacity`.
 
-        The knn is exact and MXU-shaped: squared distances expand to
+        The knn is exact and matmul-shaped: squared distances expand to
         |a|^2 + |b|^2 - 2 a.b, so the dominant cost is one (N, 3) x (3, N)
         matmul evaluated in row chunks (O(N^2) flops, O(N*chunk) memory) —
-        the TPU-native replacement for the CUDA simple-knn used by
+        the plain-JAX replacement for the CUDA simple-knn used by
         mainstream 3DGS trainers.
         """
         from gaussian_splat_ipu_tpu.ops.sh import SH_C0
@@ -211,9 +211,11 @@ def mean_knn_distance(xyz: jnp.ndarray, k: int = 3,
     """Mean distance to the k nearest neighbours of every point, (N,) f32.
 
     Exact, chunked, matmul-dominated: for each row chunk the (chunk, N)
-    squared-distance matrix is |a|^2 + |b|^2 - 2 a.b (one MXU matmul), and
-    top-(k+1) smallest selects self + k neighbours. Runs fine on CPU for
-    test-sized clouds and at MXU speed on TPU for SfM-scale ones.
+    squared-distance matrix is |a|^2 + |b|^2 - 2 a.b (one matmul), and
+    top-(k+1) smallest selects self + k neighbours. The matmul runs at full
+    f32 precision: |a|^2 + |b|^2 - 2 a.b cancels, and TF32 inputs (about
+    three decimal digits) would corrupt the small distances that set the
+    initial scales.
     """
     n = xyz.shape[0]
     if n == 1:
@@ -228,7 +230,8 @@ def mean_knn_distance(xyz: jnp.ndarray, k: int = 3,
     def one_chunk(args):
         r, rsq = args
         d2 = (rsq[:, None] + sq[None, :]
-              - 2.0 * jnp.dot(r, xp.T, preferred_element_type=jnp.float32))
+              - 2.0 * jnp.dot(r, xp.T, preferred_element_type=jnp.float32,
+                              precision=jax.lax.Precision.HIGHEST))
         # top_k of negated distances = k+1 smallest (self included at ~0);
         # padded points sit at the origin pad-block — mask them out.
         if pad:

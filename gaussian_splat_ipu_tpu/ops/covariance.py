@@ -1,11 +1,10 @@
 """Gaussian covariance math: 3D covariance, EWA 2D projection, conics.
 
-TPU-native rebuild of the reference Gaussian math
+Rebuild of the reference Gaussian math
 (include/splat/ipu_geometry.hpp:232-384). Everything is written as
-vectorized component expressions over (N,) arrays — pure VPU element-wise
+vectorized component expressions over (N,) arrays — pure element-wise
 work, no (N,3,3) batched small matmuls — and stays strictly in float32 (the
-reference's float-only discipline, include/math/README.md:1-9; on TPU f64
-would be emulated and slow just like on IPU).
+reference's float-only discipline, include/math/README.md:1-9).
 
 Note on fidelity: the reference's ComputeCov2D (ipu_geometry.hpp:333-383)
 deviates from the standard 3DGS EWA formulation by building the Jacobian
@@ -31,7 +30,7 @@ def covariance_3d(log_scales: jnp.ndarray, quats: jnp.ndarray):
     """
     s = jnp.exp(log_scales.astype(jnp.float32))
     r = quat_to_rotmat(quats.astype(jnp.float32))  # (N, 3, 3)
-    # M = R * diag(s); Sigma = M M^T. Component-wise to keep it on the VPU.
+    # M = R * diag(s); Sigma = M M^T. Component-wise, element-wise ops.
     m = r * s[..., None, :]
     xx = jnp.sum(m[..., 0, :] * m[..., 0, :], -1)
     xy = jnp.sum(m[..., 0, :] * m[..., 1, :], -1)

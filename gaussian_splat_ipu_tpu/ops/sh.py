@@ -4,7 +4,7 @@ The reference only consumes the SH DC term, converting it to RGB on the host
 as SH_C0 * f_dc + 0.5 clamped >= 0 (src/main/splat.cpp:136-148). We keep
 that exact DC path and extend to full degree-3 view-dependent SH (the
 standard 3DGS parameterization, 16 coefficients per channel) since the
-north-star requires SH colour gradients. Vectorized, f32, VPU-only.
+north-star requires SH colour gradients. Vectorized, f32, element-wise.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Covers the reference's camera stack: lookAtBoundingBox
 (src/splat/camera.cpp:10-15), fitFrustumToBoundingBox
 (src/splat/geometry.cpp:9-24), Viewport (include/splat/viewport.hpp:21-35),
 and the AMP 4x4 point transform (codelets/splat/codelets.cpp:741-871) which
-on TPU collapses to a single batched matmul on the MXU.
+here collapses to a single batched matmul.
 
 Conventions (OpenGL style, matching the reference):
   * world -> view via a right-handed lookAt; the camera looks down -z.
@@ -31,9 +31,9 @@ def look_at(eye, center, up) -> jnp.ndarray:
     s = s / jnp.linalg.norm(s)
     u = jnp.cross(s, f)
     m = jnp.stack([
-        jnp.concatenate([s, jnp.array([-jnp.dot(s, eye)])]),
-        jnp.concatenate([u, jnp.array([-jnp.dot(u, eye)])]),
-        jnp.concatenate([-f, jnp.array([jnp.dot(f, eye)])]),
+        jnp.concatenate([s, jnp.array([-jnp.sum(s * eye)])]),
+        jnp.concatenate([u, jnp.array([-jnp.sum(u * eye)])]),
+        jnp.concatenate([-f, jnp.array([jnp.sum(f * eye)])]),
         jnp.array([0.0, 0.0, 0.0, 1.0]),
     ])
     return m.astype(jnp.float32)
@@ -107,11 +107,10 @@ def translate(v) -> jnp.ndarray:
 
 
 def transform_points(matrix: jnp.ndarray, points: jnp.ndarray) -> jnp.ndarray:
-    """Batched 4x4 transform of (N, 3|4) points: one MXU matmul.
+    """Batched 4x4 transform of (N, 3|4) points: one matmul.
 
     This single line supersedes the reference's hand-written AMP systolic
-    assembly (codelets/splat/codelets.cpp:656-871): the MXU is the systolic
-    array, and XLA schedules it.
+    assembly (codelets/splat/codelets.cpp:656-871); XLA schedules it.
     """
     points = jnp.asarray(points, jnp.float32)
     if points.shape[-1] == 3:

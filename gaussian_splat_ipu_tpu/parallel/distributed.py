@@ -1,14 +1,14 @@
 """Distributed rendering + training over a device mesh (shard_map).
 
-The TPU-native replacement for the reference's tile-exchange scaling story
+The replacement for the reference's tile-exchange scaling story
 (SURVEY.md §2: framebuffer sharded one region per IPU tile, gaussians sliced
 across the same tiles, neighbour-lattice migration one hop per frame —
 src/splat/ipu_rasteriser.cpp:164-214, src/splat/edge_builder.cpp:35-84).
 
-TPU design — one mesh axis, two roles:
+Design — one mesh axis, two roles:
 
   1. *Projection is data-parallel over gaussians.* Each device holds an N/D
-     shard of the parameter pytree and projects it locally (MXU matmuls).
+     shard of the parameter pytree and projects it locally.
   2. *Exchange is a per-destination all_to_all of compact projected splats*
      (12 f32 per gaussian — position/depth/conic/color/opacity/radius), NOT
      of raw parameters (59+ floats incl. SH): each device routes every
@@ -16,7 +16,7 @@ TPU design — one mesh axis, two roles:
      strip its footprint touches, through fixed-capacity per-destination
      buckets with counted overflow (the bounded-channel discipline of the
      reference's exchange lattice, src/splat/edge_builder.cpp:35-84). Per-
-     device ICI traffic and post-exchange live memory scale with the
+     device interconnect traffic and post-exchange live memory scale with the
      strip-crossing splat population — NOT with global N, as the previous
      all_gather design did. The autodiff transpose of the routing gather +
      all_to_all is the reverse all_to_all + a scatter-add, so splat
@@ -26,7 +26,7 @@ TPU design — one mesh axis, two roles:
   3. *Rasterization is spatially parallel over framebuffer tile rows.* Each
      device bins ONLY its own row strip (render/binning.py row_lo/num_rows:
      pairs for other devices' tiles are never enumerated) and rasterizes it
-     with the Pallas kernel; the image comes back tile-row-sharded.
+     with the rasterizer kernel; the image comes back tile-row-sharded.
 
 Every frame is exact — no multi-frame migration transient like the
 reference's lattice (SURVEY.md §3.2 note).
@@ -45,7 +45,7 @@ from jax import shard_map
 from gaussian_splat_ipu_tpu.models.camera import Camera
 from gaussian_splat_ipu_tpu.models.gaussians import GaussianModel
 from gaussian_splat_ipu_tpu.parallel.mesh import SHARD_AXIS, VIEW_AXIS
-from gaussian_splat_ipu_tpu.render import binning, tile_raster
+from gaussian_splat_ipu_tpu.render import binning, pipeline, tile_raster
 from gaussian_splat_ipu_tpu.render.projection import (ProjectedSplats,
                                                       project_gaussians)
 from gaussian_splat_ipu_tpu.train import losses as loss_lib
@@ -87,8 +87,8 @@ def _rows_per_device(cfg: RasterConfig, num_devices: int) -> int:
     """Tile rows per device, rounded UP to a multiple of tile_group so
     every strip covers whole group rows (no boundary group is binned
     twice; the tail device's phantom rows are clamped in bin_splats).
-    This makes the measured-best config (tile_group=2 + exact_tile_test,
-    the round-4 1M campaign winner) valid on any mesh size."""
+    This makes grouped configs (tile_group > 1 + exact_tile_test, as in
+    the 1M default) valid on any mesh size."""
     rows = -(-cfg.tiles_y // num_devices)
     g = cfg.tile_group
     return -(-rows // g) * g
@@ -126,15 +126,15 @@ def _route_all_to_all(packed: jnp.ndarray, dest_lo: jnp.ndarray,
 
     Differentiable in `packed`: the routing indices are integer-only, the
     row gather transposes to a scatter-add, and the all_to_all transposes
-    to its inverse permutation — splat cotangents ride the same ICI links
+    to its inverse permutation — splat cotangents ride the same links
     back to the owning shard.
     """
     nloc, nfeat = packed.shape
     p = d * cap  # pair-expansion capacity == total send-buffer slots
 
     # Expand to (splat, destination) pairs — the scatter+cummax expansion
-    # of render/binning.py (jnp.repeat lowers ~60x slower on TPU). Pairs
-    # come out ordered by gaussian id, destinations ascending within one.
+    # of render/binning.py. Pairs come out ordered by gaussian id,
+    # destinations ascending within one.
     span_ext = jnp.concatenate([span, jnp.array([p], jnp.int32)])
     ends_cum = jnp.cumsum(span_ext)
     offsets_ext = ends_cum - span_ext
@@ -144,7 +144,7 @@ def _route_all_to_all(packed: jnp.ndarray, dest_lo: jnp.ndarray,
     slot = jnp.arange(p, dtype=jnp.int32)
     # d is tiny (<= mesh axis), so dest_lo packs into the low bits of the
     # segment-start key and forward-fills with the SAME cummax that fills
-    # gid — no (P,)-element gather, which runs ~1 element/cycle on TPU.
+    # gid — no separate (P,)-element gather.
     dbits = max((d + 1).bit_length(), 1)
     dest_ext = jnp.concatenate([dest_lo, jnp.array([d], jnp.int32)])
     key_at = jnp.zeros((p,), jnp.int32).at[first_slot].max(
@@ -236,23 +236,46 @@ def render_sharded(model: GaussianModel, camera: Camera, cfg: RasterConfig,
     exchange: "all_to_all" (default) routes each projected splat only to
     the devices whose row strips it touches, through `exchange_capacity`-
     row buckets (counted overflow in .exchange_overflow) — per-device
-    memory and ICI traffic scale with strip-crossing splats, not global N.
+    memory and interconnect traffic scale with strip-crossing splats, not
+    global N.
     "all_gather" replicates every projected splat (the O(N)-per-device
     fallback; exact whenever the pair table fits).
     """
+    if xy_probe is None:
+        xy_probe = jnp.zeros((model.num_gaussians, 2), jnp.float32)
+    return _run_sharded(False, (model, camera, xy_probe),
+                        model.num_gaussians, cfg, mesh, axis, use_pallas,
+                        pair_capacity, exchange, exchange_capacity)
+
+
+def render_splats_sharded(splats: ProjectedSplats, cfg: RasterConfig,
+                          mesh, axis: str = SHARD_AXIS,
+                          use_pallas: bool = True,
+                          pair_capacity: int | None = None,
+                          exchange: str = "all_to_all",
+                          exchange_capacity: int | None = None
+                          ) -> ShardedRenderOutput:
+    """render_sharded after its projection: exchange, bin and rasterize
+    already-projected splats, sharded along N on `axis`. Given the same
+    splats it is bit-identical to pipeline.render_splats, which separates
+    what the mesh changes from what a different projection program does."""
+    return _run_sharded(True, (splats,), splats.xy.shape[0], cfg, mesh,
+                        axis, use_pallas, pair_capacity, exchange,
+                        exchange_capacity)
+
+
+def _run_sharded(projected, args, n, cfg, mesh, axis, use_pallas,
+                 pair_capacity, exchange, exchange_capacity):
     d = mesh.shape[axis]
-    rows = _rows_per_device(cfg, d)
     if pair_capacity is None:
         pair_capacity = default_pair_budget(cfg, d)
     pair_capacity = -(-pair_capacity // cfg.chunk_size) * cfg.chunk_size
-    if xy_probe is None:
-        xy_probe = jnp.zeros((model.num_gaussians, 2), jnp.float32)
-    cap = _exchange_capacity(-(-model.num_gaussians // d), d,
-                             exchange_capacity)
+    cap = _exchange_capacity(-(-n // d), d, exchange_capacity)
     program = _render_sharded_program(cfg, mesh, axis, use_pallas,
-                                      pair_capacity, exchange, cap)
+                                      pair_capacity, exchange, cap,
+                                      projected)
     (image, counts, overflow, num_pairs, visible, truncated,
-     exchange_overflow) = program(model, camera, xy_probe)
+     exchange_overflow) = program(*args)
     return ShardedRenderOutput(image=image, tile_counts=counts,
                                overflow=overflow, num_pairs=num_pairs,
                                visible=visible, truncated=truncated,
@@ -261,20 +284,20 @@ def render_sharded(model: GaussianModel, camera: Camera, cfg: RasterConfig,
 
 @functools.lru_cache(maxsize=None)
 def _render_sharded_program(cfg, mesh, axis, use_pallas, pair_capacity,
-                            exchange, cap):
+                            exchange, cap, projected):
     """Build (once per static config) the jitted shard_map render program.
 
     render_sharded is called eagerly all over the test suite and the
     interactive/train apps; without this cache every call constructed a
     fresh closure and re-traced + re-lowered the full program (~40 s on
     the CPU mesh). Mesh and RasterConfig are hashable by value, so equal
-    configs share one compiled program per process."""
+    configs share one compiled program per process. `projected`: the
+    program takes projected splats (render_splats_sharded) instead of the
+    model, camera and probe."""
     d = mesh.shape[axis]
     rows = _rows_per_device(cfg, d)
 
-    def shard_fn(model_shard, camera_rep, probe_shard):
-        sp_local = project_gaussians(model_shard, camera_rep, cfg,
-                                     xy_probe=probe_shard)
+    def strip_fn(sp_local):
         packed = _pack_splats(sp_local)
         if exchange == "all_to_all":
             dest_lo, span = _dest_strip_span(sp_local, cfg, rows)
@@ -299,24 +322,30 @@ def _render_sharded_program(cfg, mesh, axis, use_pallas, pair_capacity,
         counts = binned.tile_ends - binned.tile_starts
         overflow = jax.lax.psum(binned.overflow, axis)
         num_pairs = jax.lax.psum(binned.num_pairs, axis)
-        work_cap = cfg.max_chunks_per_tile * cfg.chunk_size
         truncated = jax.lax.psum(
-            jnp.sum(jnp.maximum(counts - work_cap, 0)), axis)
+            pipeline.truncated_pairs(counts, cfg, row_lo), axis)
         return (tiles, counts, overflow, num_pairs,
                 sp_local.radius[:, 0] > 0.0, truncated,
                 jax.lax.psum(xovf, axis))
 
+    if projected:
+        shard_fn, in_specs = strip_fn, (P(axis),)
+    else:
+        def shard_fn(model_shard, camera_rep, probe_shard):
+            return strip_fn(project_gaussians(model_shard, camera_rep, cfg,
+                                              xy_probe=probe_shard))
+        in_specs = (P(axis), P(), P(axis))
+
     mapped = shard_map(
-        shard_fn, mesh=mesh,
-        in_specs=(P(axis), P(), P(axis)),
+        shard_fn, mesh=mesh, in_specs=in_specs,
         out_specs=(P(axis), P(axis), P(), P(), P(axis), P(), P()),
         check_vma=False,  # custom_vjp inside defeats the varying-axis check
     )
 
     @jax.jit
-    def run(model, camera, xy_probe):
+    def run(*args):
         (tiles, counts, overflow, num_pairs, visible, truncated,
-         exchange_overflow) = mapped(model, camera, xy_probe)
+         exchange_overflow) = mapped(*args)
         image = _untile_rows(tiles, cfg, rows * d)
         return (image, counts, overflow, num_pairs, visible, truncated,
                 exchange_overflow)
@@ -412,11 +441,10 @@ def _render_views_program(cfg, mesh, view_axis, shard_axis, use_pallas,
             else:
                 tiles = tile_raster.rasterize_tiles_jnp(
                     binned, cfg, tile_offset=offset)
-            work_cap = cfg.max_chunks_per_tile * cfg.chunk_size
             counts = binned.tile_ends - binned.tile_starts
             stats = jnp.stack([
                 xovf, binned.overflow,
-                jnp.sum(jnp.maximum(counts - work_cap, 0))])
+                pipeline.truncated_pairs(counts, cfg, row_lo)])
             return tiles, stats
 
         # Sequential over the local view slice: each view already uses the

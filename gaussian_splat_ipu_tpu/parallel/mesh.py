@@ -36,9 +36,10 @@ def make_mesh_2d(num_views: int, num_shards: int | None = None,
                  view_axis: str = VIEW_AXIS,
                  shard_axis: str = SHARD_AXIS) -> Mesh:
     """(view, shard) mesh: data parallelism over camera views on the outer
-    axis, gaussian/tile-row sharding on the inner (fastest-varying ->
-    highest-bandwidth ICI neighbours carry the all_gather/reduce_scatter
-    of the shard axis; the view axis only moves gradients once)."""
+    axis, gaussian/tile-row sharding on the inner (the shard axis carries
+    the per-frame exchange; the view axis only moves gradients once). The
+    device list is flat: on NVLink every card reaches every other at the
+    same rate, so the layout follows the algorithm alone."""
     devices = jax.devices()
     if num_shards is None:
         num_shards = len(devices) // num_views

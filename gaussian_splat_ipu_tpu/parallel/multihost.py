@@ -1,18 +1,19 @@
-"""Multi-host (multi-process) setup over DCN.
+"""Multi-host (multi-process) setup.
 
 The reference is strictly single-process/single-IPU (SURVEY.md §4: "no
 multi-IPU or multi-host code paths exist"); the north star requires N>=2
 host scaling. JAX's model: one process per host, `jax.distributed`
 bootstraps the cluster, `jax.devices()` then spans every host and the SAME
-shard_map code from parallel/distributed.py runs unchanged — XLA routes the
-all_gather/reduce_scatter over ICI within a slice and DCN across slices.
+shard_map code from parallel/distributed.py runs unchanged — XLA hands the
+collectives to NCCL, over NVLink within a host and the network across
+hosts.
 
 Typical launch (one command per host):
 
     python -m gaussian_splat_ipu_tpu.app.train --input scene.ply \
         --distributed   # after initialize() via GSPLAT_COORDINATOR env
 
-Environment contract (when not running on Cloud TPU auto-detection):
+Environment contract (nothing on a plain GPU host describes the cluster):
     GSPLAT_COORDINATOR  host:port of process 0
     GSPLAT_NUM_PROCESSES, GSPLAT_PROCESS_ID
 """
@@ -38,8 +39,7 @@ def initialize(coordinator: Optional[str] = None,
     """
     coordinator = coordinator or os.environ.get("GSPLAT_COORDINATOR")
     if coordinator is None:
-        # On Cloud TPU pods jax.distributed can self-configure; only do so
-        # when explicitly requested to keep single-host runs untouched.
+        # No coordinator given: a single-process run, left untouched.
         return False
     num_processes = num_processes or int(
         os.environ.get("GSPLAT_NUM_PROCESSES", "1"))

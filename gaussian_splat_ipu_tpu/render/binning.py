@@ -1,11 +1,11 @@
-"""Gaussian -> tile binning: the TPU-native replacement for the exchange
+"""Gaussian -> tile binning: the replacement for the reference's exchange
 lattice.
 
 The reference migrates gaussians between neighbouring IPU tiles one hop per
 frame over fixed 300-slot channels with greedy Manhattan routing and a beam
 protocol for multi-tile footprints (src/splat/edge_builder.cpp:35-84,
 codelets/splat/codelets.cpp:194-293,554-572) — the image only converges
-over several frames. On TPU we bin exactly, every frame:
+over several frames. Here binning is exact, every frame:
 
   1. per-gaussian tile-coverage rectangle from the 3-sigma radius
      (the Bounds2f::clip / direction logic of ipu_geometry.hpp:133-155
@@ -23,7 +23,6 @@ Everything is static-shaped and jit-compatible; the sort runs on-device.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import jax
@@ -33,13 +32,11 @@ from gaussian_splat_ipu_tpu.render.projection import ProjectedSplats
 from gaussian_splat_ipu_tpu.utils.config import RasterConfig
 
 # Rows of the feature-major (TABLE_ROWS, P) pair table handed to the
-# rasterizer. Feature-major because Mosaic DMA slices must be 128-aligned
-# along the minor (lane) dimension: a (TABLE_ROWS, C=128) chunk slice of a
-# P-minor array satisfies that (P is chunk-aligned, so the floor-aligned
-# walk never overruns), whereas any pair-major layout would need the
-# feature count itself padded to 128 lanes. Only the NUM_FEATURES live
-# rows ride the radix sorts; rows [NUM_FEATURES, TABLE_ROWS) are a zero
-# block appended afterwards to satisfy the 8-sublane tiling.
+# rasterizer. Feature-major: each feature row is contiguous along the pairs,
+# so the kernel's per-pair reads walk consecutive addresses of 10 rows, and
+# the jnp spec slices (TABLE_ROWS, C) chunks. Only the NUM_FEATURES live
+# rows ride the sort; rows [NUM_FEATURES, TABLE_ROWS) are a zero block
+# appended afterwards, which keeps a gradient row a power of two long.
 FEAT_X = 0
 FEAT_Y = 1
 FEAT_CONIC_A = 2
@@ -58,8 +55,8 @@ class BinnedSplats(NamedTuple):
     """Sorted (gaussian, tile) pair table + per-tile ranges.
 
     Tile t's pairs occupy [tile_starts[t], tile_ends[t]) in the feature
-    table, depth-ascending. The table is padded by one chunk of zeros so a
-    floor-aligned chunk DMA ending past the last live pair stays in bounds.
+    table, depth-ascending. The capacity P is a multiple of the chunk
+    size, so the jnp spec's chunk slices stay in bounds.
     """
 
     features: jnp.ndarray    # (TABLE_ROWS, P) f32, sorted (tile, depth)
@@ -188,33 +185,6 @@ def _coverage_masks(splats: ProjectedSplats, cfg: RasterConfig,
     return testable, mlo, mhi, count
 
 
-def _coverage_masks_dispatch(splats: ProjectedSplats, cfg: RasterConfig,
-                             x0, y0, nx, ny, cell_w, cell_h):
-    """Backend dispatch for the exact coverage masks: the Pallas
-    in-register kernel on TPU (render/kernels/coverage.py — the XLA
-    fori_loop round-trips its 3-word carry through HBM 64 times, a
-    hidden multi-ms cost of exact_tile_test at 1M, round-5 profile),
-    the XLA loop elsewhere (the CPU spec stays kernel-free)."""
-    on_tpu = jax.default_backend() == "tpu"
-    if not (on_tpu or FORCE_EXPAND_KERNEL):
-        return _coverage_masks(splats, cfg, x0, y0, nx, ny,
-                               cell_w=cell_w, cell_h=cell_h)
-    from gaussian_splat_ipu_tpu.render.kernels import coverage
-
-    sg = jax.lax.stop_gradient
-    testable = (nx <= MASK_SPAN) & (ny <= MASK_SPAN) & (nx * ny > 0)
-    geomf = jnp.stack([
-        sg(splats.xy[:, 0]), sg(splats.xy[:, 1]),
-        sg(splats.conic[:, 0]), sg(splats.conic[:, 1]),
-        sg(splats.conic[:, 2]), sg(splats.opacity)], axis=0)
-    geomi = jnp.stack([x0, y0, nx, ny,
-                       testable.astype(jnp.int32)], axis=0)
-    mlo, mhi, count = coverage.coverage_masks_tpu(
-        geomf, geomi, tw=float(cell_w), th=float(cell_h),
-        alpha_min=float(cfg.alpha_min), interpret=not on_tpu)
-    return testable, mlo, mhi, count
-
-
 def _pair_tile_decode(geom_g, mlo_g, mhi_g, rank):
     """Per-pair rank -> (tx, ty), from the 31-bit packed geometry
     (x0 | y0<<12 | nx<<24 | masked<<30) used by the exact/presort
@@ -229,12 +199,11 @@ def _pair_tile_decode(geom_g, mlo_g, mhi_g, rank):
 def _decode_tiles(gx0, gy0, gnx, masked, mlo_g, mhi_g, rank):
     """Per-pair rank -> (tx, ty) tile coordinates.
 
-    Unmasked: row-major walk of the coverage rectangle via the
-    floor-exact f32 rcp-multiply (the VPU has no int divider; exact
-    while quotient*divisor < 2^24). Masked (exact_tile_test): rank
-    selects the rank-th SET BIT of the 64-bit coverage mask — a 5-step
-    binary search over popcounts of shrinking windows, all
-    VPU-streamable ops (~40/pair, no gathers).
+    Unmasked: row-major walk of the coverage rectangle via a
+    floor-exact f32 division (exact while quotient*divisor < 2^24).
+    Masked (exact_tile_test): rank selects the rank-th SET BIT of the
+    64-bit coverage mask — a 5-step binary search over popcounts of
+    shrinking windows, elementwise ops only (~40/pair, no gathers).
     """
     popcount = jax.lax.population_count
     # Unmasked rectangle walk.
@@ -271,16 +240,15 @@ def _sorted_feature_table(packed, tile, gid_pre):
     Returns (feats (TABLE_ROWS, P), tile_s (P,), gid_s (P,)).
 
     custom_vjp because the whole block is a row-selection of `packed`:
-    autodiff would transpose each radix sort into its own P-wide scatter
-    (~10 carried columns each) before the final scatter-add — measured 58ms
-    of a 72ms train step at 720p. The hand backward is ONE scatter-add of
+    autodiff would transpose each sort into its own P-wide scatter
+    (~10 carried columns each) before the final scatter-add. The hand
+    backward is ONE scatter-add of
     the cotangent rows by the sorted gaussian id (addition commutes, so the
     sort permutation never needs inverting).
     """
     table = packed[gid_pre]                        # (P, F) ascending gather
     is_pad = gid_pre >= packed.shape[0] - 1
-    # Depth bits: order-isomorphic i32 view of the (positive) depth column;
-    # single-key i32 sorts hit the TPU radix fast path (~100x vs multi-key).
+    # Depth bits: order-isomorphic i32 view of the (positive) depth column.
     depth_bits = jnp.where(
         is_pad, jnp.int32(0x7FFFFFFF),
         jax.lax.bitcast_convert_type(table[:, FEAT_DEPTH], jnp.int32))
@@ -319,426 +287,83 @@ _sorted_feature_table.defvjp(_sorted_feature_table_fwd,
                              _sorted_feature_table_bwd)
 
 
-# Test hook: force the Pallas expand kernel (interpret mode) on non-TPU
-# backends, where bin_splats otherwise keeps the pure-jnp gather so the
-# CPU spec stays kernel-free and fast.
-FORCE_EXPAND_KERNEL = False
+@jax.custom_vjp
+def _fused_feature_table(packed, rank, gid_pre, depth_keep_bits, ntx_s):
+    """Expansion gather + ONE stable sort on a fused (tile, depth) key.
 
+    The sort key packs (tile, quantized depth) into one i32:
+    key = (tile << depth_keep_bits) | (depth_bits >> (31 - depth_keep_bits))
+    where depth_bits is the order-isomorphic i32 view of the positive f32
+    depth. Ties within a depth quantum fall back to gaussian-id order
+    (stable sort over the ascending pre-sort gid). depth_keep_bits/ntx_s
+    are traced i32 scalars.
 
-def _decode_key_sort(all_cols, rank, gid_pre, n, depth_keep_bits, ntx_s,
-                     seg=None):
-    """Shared fused-path tail: decode per-pair tiles from the expanded
-    geometry columns + rank, build the (tile << depth_keep_bits | qdepth)
-    key, run the ONE stable radix pass carrying the 10 feature columns,
-    zero pad columns, and append the zero block up to TABLE_ROWS.
+    packed is (N+1, 16): the 10 feature columns plus SIX exact-in-f32
+    integer payload columns — xy0 = x0 | y0<<12 (24-bit), nxm = nx |
+    masked<<6 (7-bit), and the four 16-bit halves of the two coverage-
+    mask words (small non-negative integers encode exactly as f32). Row N
+    is zero and owns the pad pairs. The expansion is the ascending row
+    gather packed[gid_pre]; the destination tile of each pair is decoded
+    from the expanded columns + the pair's rank (_decode_tiles), and only
+    the 10 feature columns ride the sort as carried values.
 
-    seg=(R, cap): the pairs are already PLACED into R row-bucket
-    segments of cap slots (segmented stream path) — the sort then runs
-    as a batched (R, cap) 2D sort along the last axis. Buckets are whole
-    group rows in ascending order, so the concatenation of per-bucket
-    sorted runs is exactly the global key order (pads carry the max key
-    and sink to each bucket's tail).
+    custom_vjp: the whole block is a row-selection of `packed`, so the
+    backward is ONE scatter-add of the cotangent rows by the sorted
+    gaussian id (see _sorted_feature_table).
 
-    Returns (feats (TABLE_ROWS, P), tile_s, gid_s)."""
+    Returns (feats (TABLE_ROWS, P), tile_s (P,), gid_s (P,)).
+    """
+    n = packed.shape[0] - 1
+    table = packed[gid_pre]                        # (P, 16) ascending gather
     is_pad = gid_pre >= n
 
-    def f2i(x):
-        return x.astype(jnp.int32)
+    def col(i):
+        return table[:, i].astype(jnp.int32)
 
-    xy0 = f2i(all_cols[NUM_FEATURES])
-    nxm = f2i(all_cols[NUM_FEATURES + 1])
-    mlo_g = (f2i(all_cols[NUM_FEATURES + 3]) << 16) \
-        | f2i(all_cols[NUM_FEATURES + 2])
-    mhi_g = (f2i(all_cols[NUM_FEATURES + 5]) << 16) \
-        | f2i(all_cols[NUM_FEATURES + 4])
+    xy0 = col(NUM_FEATURES)
+    nxm = col(NUM_FEATURES + 1)
+    mlo_g = (col(NUM_FEATURES + 3) << 16) | col(NUM_FEATURES + 2)
+    mhi_g = (col(NUM_FEATURES + 5) << 16) | col(NUM_FEATURES + 4)
     tx, ty = _decode_tiles(xy0 & 0xFFF, xy0 >> 12,
                            jnp.maximum(nxm & 0x3F, 1),
                            (nxm >> 6) & 1, mlo_g, mhi_g, rank)
     tile = ty * ntx_s + tx
-    depth_bits = jax.lax.bitcast_convert_type(all_cols[FEAT_DEPTH],
+    depth_bits = jax.lax.bitcast_convert_type(table[:, FEAT_DEPTH],
                                               jnp.int32)
     key = jnp.where(
         is_pad, jnp.int32(0x7FFFFFFF),
         (tile << depth_keep_bits)
         | (depth_bits >> (jnp.int32(31) - depth_keep_bits)))
-    cols = list(all_cols[:NUM_FEATURES])
-    ops = [key, gid_pre] + cols
-    if seg is not None:
-        r_b, cap = seg
-        out = jax.lax.sort(tuple(o.reshape(r_b, cap) for o in ops),
-                           num_keys=1)
-        out = tuple(o.reshape(r_b * cap) for o in out)
-    else:
-        out = jax.lax.sort(tuple(ops), num_keys=1)
-    tile_s = out[0] >> depth_keep_bits
-    stacked = jnp.stack(out[2:], axis=0)
-    # Pad pairs expanded through a clamping kernel carry junk; restore
-    # the gather's zero sentinel content unconditionally (no-op for the
-    # gather branch, whose pads expand the zero row).
-    stacked = jnp.where(out[1][None, :] >= n, 0.0, stacked)
+    cols = [table[:, i] for i in range(NUM_FEATURES)]
+    out = jax.lax.sort(tuple([key, gid_pre] + cols), num_keys=1)
     feats = jnp.concatenate(
-        [stacked,
+        [jnp.stack(out[2:], axis=0),
          jnp.zeros((TABLE_ROWS - NUM_FEATURES, rank.shape[0]),
                    jnp.float32)], axis=0)          # (TABLE_ROWS, P)
-    return feats, tile_s, out[1]
+    return feats, out[0] >> depth_keep_bits, out[1]
 
 
-@functools.lru_cache(maxsize=None)
-def _make_stream_table(interpret: bool, p: int):
-    """Round-5 stream binning front-end (factory; one custom_vjp
-    instance per (interpret, capacity)).
-
-    Replaces the ENTIRE P-wide expansion stage of the fused path with
-    one carry-free Pallas pass (render/kernels/expand.py, _kernel_v4):
-    the N-point segment-start scatter (~8 ns/point serialized on TPU —
-    7-8 ms at N=1M, the round-5 piece profile), the P-wide cummax/rank
-    scans (12.33 ms at P=3.9M, bench_profile r4), and the P-row
-    expansion gather (~25 ms) all collapse into an in-register binary
-    search over each step's offset window fused with the windowed
-    dynamic-gather row expansion. The only inputs are the per-gaussian
-    slot OFFSETS (the N-scale cumsum the pipeline needs anyway); a
-    per-frame span check falls back to the XLA scatter+scans+gather via
-    lax.cond when a step's source window would not fit (long culled
-    runs).
-
-    custom_vjp: the whole block is a row-selection of `packed`; the
-    backward is ONE whole-row scatter-add of the cotangent rows keyed by
-    the sorted gaussian id (see _sorted_feature_table)."""
-    from gaussian_splat_ipu_tpu.render.kernels import expand as expand_mod
-
-    # Interpret mode (CPU tests) uses small steps/windows: the Pallas
-    # interpreter dispatches each runtime op individually, so window
-    # sweeps must stay short; the compiled TPU path uses the full sizes.
-    chunk = 256 if interpret else expand_mod.CHUNK
-    win = 512 if interpret else expand_mod.WIN
-
-    @jax.custom_vjp
-    def stream_table(packed, offs, depth_keep_bits, ntx_s):
-        n = packed.shape[0] - 1
-        los, span = expand_mod.window_starts_from_offsets(offs, p, n,
-                                                          chunk=chunk)
-        packed_t = expand_mod.pad_packed_cols(packed, win=win)
-        offs_pad = jnp.concatenate(
-            [offs, jnp.full((win + 256,), jnp.int32(0x7FFFFFFF))])[None]
-        nblocks = -(-p // chunk)
-        rows = jnp.zeros((nblocks,), jnp.int32)
-        pad_starts = jnp.broadcast_to(offs[n], (nblocks,))
-        meta = jnp.full((1,), n, jnp.int32)
-
-        def kernel_branch(args):
-            packed, packed_t, offs_pad = args
-            cols, gid, rank = expand_mod.stream_expand(
-                packed_t, offs_pad, los, rows, pad_starts, meta, p,
-                chunk=chunk, win=win, interpret=interpret)
-            return (tuple(cols[i] for i in range(16)), gid, rank)
-
-        def scan_branch(args):
-            packed, packed_t, offs = args
-            # XLA fallback: the scatter + cummax + rank + row gather of
-            # rounds 1-4 (only traced; executes on span violation).
-            ncov_ext = jnp.diff(jnp.concatenate(
-                [offs, jnp.array([offs[n] + p], jnp.int32)]))
-            first_slot = jnp.where(ncov_ext > 0, offs, p)
-            iota_n = jnp.arange(n + 1, dtype=jnp.int32)
-            gid_at = jnp.zeros((p,), jnp.int32).at[first_slot].max(
-                iota_n, mode="drop")
-            gid = jax.lax.cummax(gid_at)
-            slot = jnp.arange(p, dtype=jnp.int32)
-            prev_gid = jnp.concatenate(
-                [jnp.full((1,), -1, jnp.int32), gid[:-1]])
-            rank = slot - jax.lax.cummax(
-                jnp.where(gid != prev_gid, slot, 0))
-            table = packed[gid]            # (P, 16) ascending gather
-            return (tuple(table[:, i] for i in range(16)), gid, rank)
-
-        all_cols, gid_pre, rank = jax.lax.cond(
-            span <= win, kernel_branch,
-            lambda args: scan_branch((args[0], args[1], offs)),
-            (packed, packed_t, offs_pad))
-        return _decode_key_sort(all_cols, rank, gid_pre, n,
-                                depth_keep_bits, ntx_s)
-
-    def stream_table_fwd(packed, offs, depth_keep_bits, ntx_s):
-        out = stream_table(packed, offs, depth_keep_bits, ntx_s)
-        return out, (out[2], packed.shape)
-
-    def stream_table_bwd(res, cotangents):
-        gid_s, pshape = res
-        rows = cotangents[0][:NUM_FEATURES].T      # (P, F)
-        dbody = jnp.zeros((pshape[0], NUM_FEATURES), rows.dtype)
-        dbody = dbody.at[gid_s].add(rows)
-        dpacked = jnp.concatenate(
-            [dbody, jnp.zeros((pshape[0], pshape[1] - NUM_FEATURES),
-                              rows.dtype)], axis=-1)
-        return dpacked, None, None, None
-
-    stream_table.defvjp(stream_table_fwd, stream_table_bwd)
-    return stream_table
+def _fused_feature_table_fwd(packed, rank, gid_pre, depth_keep_bits,
+                             ntx_s):
+    out = _fused_feature_table(packed, rank, gid_pre, depth_keep_bits,
+                               ntx_s)
+    return out, (out[2], packed.shape)
 
 
-# Source-window rows for the SEGMENTED stream placement. Bucket slots
-# are owned by a sparse subset of the gaussian index space (only
-# footprints touching the bucket's rows), so a 2048-pair step spans more
-# gaussian indices than the flat walk; the doubled window keeps the
-# lax.cond flat fallback rare for R <= 8 buckets (measured spans ~4-7k
-# at 1M gaussians / 12 group rows).
-ROWSEG_WIN = 8192
+def _fused_feature_table_bwd(res, cotangents):
+    gid_s, pshape = res
+    rows = cotangents[0][:NUM_FEATURES].T          # (P, F)
+    # Whole-row scatter-add; the integer payload columns get zeros.
+    dbody = jnp.zeros((pshape[0], NUM_FEATURES), rows.dtype)
+    dbody = dbody.at[gid_s].add(rows)
+    dpacked = jnp.concatenate(
+        [dbody, jnp.zeros((pshape[0], pshape[1] - NUM_FEATURES),
+                          rows.dtype)], axis=-1)
+    return dpacked, None, None, None, None
 
 
-def _stream_sizes(interpret: bool, rowseg: bool = False,
-                  r_buckets: int = 0):
-    """(chunk, win) for the stream kernels: full sizes compiled on TPU,
-    small ones under the Pallas interpreter (per-op dispatch cost).
-    Finer row buckets have sparser contributing-gaussian index bands,
-    so the source window doubles past 8 buckets."""
-    from gaussian_splat_ipu_tpu.render.kernels import expand as expand_mod
-    if interpret:
-        return 256, (1024 if rowseg else 512)
-    if rowseg:
-        return expand_mod.CHUNK, (ROWSEG_WIN if r_buckets <= 8
-                                  else 2 * ROWSEG_WIN)
-    return expand_mod.CHUNK, expand_mod.WIN
-
-
-def _bucket_counts(y0, nx, ny, flag01, mlo, mhi, gy_lo, bounds):
-    """(R, N) exact per-bucket pair counts from the footprint geometry.
-
-    Bucket r covers LOCAL group rows [bounds[r], bounds[r+1]); rows are
-    local to this device's strip (gy_lo = first group row). Masked
-    footprints (exact_tile_test) count the per-row popcount of their
-    coverage mask; rectangles count nx per overlapped row. Column sums
-    reproduce ncov exactly, so per-bucket offsets + the in-kernel rank
-    match the flat expansion's row-major footprint walk."""
-    popcount = jax.lax.population_count
-    rel = y0 - gy_lo
-    rowpop = []
-    for dy in range(MASK_SPAN):
-        word = mlo if dy < 4 else mhi
-        rp = popcount((word >> ((dy % 4) * 8)) & 0xFF)
-        rowpop.append(jnp.where(dy < ny, rp, 0))
-    rows = []
-    for r in range(len(bounds) - 1):
-        br0, br1 = bounds[r], bounds[r + 1]
-        ov = jnp.clip(jnp.minimum(rel + ny, br1) - jnp.maximum(rel, br0),
-                      0, br1 - br0)
-        cm = jnp.zeros_like(nx)
-        for dy in range(MASK_SPAN):
-            row = rel + dy
-            cm = cm + jnp.where((row >= br0) & (row < br1),
-                                rowpop[dy], 0)
-        rows.append(jnp.where(flag01 == 1, cm, nx * ov))
-    return jnp.stack(rows, axis=0).astype(jnp.int32)
-
-
-def balance_bounds(row_demands, r_buckets: int, min_sum: int = 0):
-    """Optimal demand-balanced contiguous partition of group rows.
-
-    row_demands: per-group-row pair demand (pass the WORST over the
-    camera set for orbit workloads). Returns an (R+1,) tuple of bucket
-    start rows for RasterConfig.rowseg_bounds, minimizing the MAXIMUM
-    bucket demand (DP linear partition; a single dense row lower-bounds
-    it) subject to every bucket's demand >= min_sum where feasible.
-
-    Both bucket-demand extremes matter on skewed scenes: the max sets
-    the equal per-bucket capacity (and the batched sort's pow2 pad),
-    while the MIN sets the stream-placement source-window span — a
-    chunk of C pair slots in a bucket with demand D spans ~C*N/D
-    gaussian indices (contributor sparsity cancels: pairs per index =
-    D/N), so sparse edge rows must merge into neighbours rather than
-    sit in their own bucket. min_sum ~ C*N/win*slack enforces that."""
-    d = [int(x) for x in row_demands]
-    nrows = len(d)
-    if r_buckets >= nrows:
-        return tuple(range(nrows + 1))
-    pre = [0]
-    for x in d:
-        pre.append(pre[-1] + x)
-
-    def seg(j, i):
-        return pre[i] - pre[j]
-
-    big = float("inf")
-
-    def solve(floor):
-        # f[r][i]: min possible max-bucket-demand partitioning rows
-        # [0, i) into r buckets, each with sum >= floor.
-        f = [[big] * (nrows + 1) for _ in range(r_buckets + 1)]
-        arg = [[0] * (nrows + 1) for _ in range(r_buckets + 1)]
-        f[0][0] = 0
-        for r in range(1, r_buckets + 1):
-            for i in range(1, nrows + 1):
-                for j in range(i):
-                    if f[r - 1][j] == big:
-                        continue
-                    s = seg(j, i)
-                    if s < floor:
-                        continue
-                    v = max(f[r - 1][j], s)
-                    if v < f[r][i]:
-                        f[r][i] = v
-                        arg[r][i] = j
-        if f[r_buckets][nrows] == big:
-            return None
-        bounds = [nrows]
-        for r in range(r_buckets, 0, -1):
-            bounds.append(arg[r][bounds[-1]])
-        return tuple(reversed(bounds))
-
-    return solve(min_sum) or solve(0) or tuple(
-        [0] + list(range(nrows - r_buckets + 1, nrows + 1)))
-
-
-def bucket_demands(splats: ProjectedSplats, cfg: RasterConfig):
-    """Per-group-row pair demand for this frame (nrows_g,) — the probe
-    input for balance_bounds (full grid, single strip)."""
-    g = cfg.tile_group
-    x0, y0, nx, ny = tile_ranges_of(splats, cfg)
-    if g > 1:
-        x1 = x0 + jnp.maximum(nx - 1, 0)
-        y1 = y0 + jnp.maximum(ny - 1, 0)
-        gx0, gy0 = x0 // g, y0 // g
-        nx = jnp.where(nx > 0, x1 // g - gx0 + 1, 0)
-        ny = jnp.where(ny > 0, y1 // g - gy0 + 1, 0)
-        x0, y0 = gx0, gy0
-    if cfg.exact_tile_test:
-        testable, mlo, mhi, ncov_x = _coverage_masks_dispatch(
-            splats, cfg, x0, y0, nx, ny, cell_w=g * cfg.tile_width,
-            cell_h=g * cfg.tile_height)
-        flag01 = testable.astype(jnp.int32)
-    else:
-        mlo = mhi = flag01 = jnp.zeros_like(nx)
-    nrows_g = -(-cfg.tiles_y // g)
-    counts = _bucket_counts(y0, nx, ny, flag01, mlo, mhi, jnp.int32(0),
-                            tuple(range(nrows_g + 1)))
-    return counts.sum(axis=1)
-
-
-@functools.lru_cache(maxsize=None)
-def _make_rowseg_table(interpret: bool, p: int, r_buckets: int,
-                       cap: int):
-    """Segmented stream placement + batched (R, cap) sort (factory; one
-    custom_vjp instance per geometry).
-
-    The stream kernel places every pair directly into its row-bucket
-    segment (offsets are per-bucket absolute slots); the 12-operand
-    radix sort then runs as a BATCHED 2D sort over the R segments —
-    XLA's 1D radix is strongly superlinear past 2^21 pairs (BASELINE.md
-    sort curve) while the batched path is not. Bucket order = group-row
-    order, so concatenated sorted buckets ARE the global key order and
-    the rendered image is bit-identical to the flat path.
-
-    custom_vjp: as _make_stream_table — ONE whole-row scatter-add of the
-    cotangent rows keyed by sorted gaussian id."""
-    from gaussian_splat_ipu_tpu.render.kernels import expand as expand_mod
-
-    chunk, win = _stream_sizes(interpret, rowseg=True,
-                               r_buckets=r_buckets)
-
-    @jax.custom_vjp
-    def rowseg_table(packed, offs_rows, offs2_rows, depth_keep_bits,
-                     ntx_s):
-        n = packed.shape[0] - 1
-        los, rows_arr, pads_arr, _ = \
-            expand_mod.window_starts_from_offsets_seg(offs_rows, cap, n,
-                                                      chunk=chunk)
-        packed_t = expand_mod.pad_packed_cols(packed, win=win)
-        meta = jnp.full((1,), n, jnp.int32)
-        cols, gid, rank = expand_mod.stream_expand(
-            packed_t, offs_rows, los, rows_arr, pads_arr, meta, p,
-            chunk=chunk, win=win, interpret=interpret,
-            offs2_pad=offs2_rows)
-        all_cols = tuple(cols[i] for i in range(16))
-        return _decode_key_sort(all_cols, rank, gid, n, depth_keep_bits,
-                                ntx_s, seg=(r_buckets, cap))
-
-    def rowseg_table_fwd(packed, offs_rows, offs2_rows, depth_keep_bits,
-                         ntx_s):
-        out = rowseg_table(packed, offs_rows, offs2_rows,
-                           depth_keep_bits, ntx_s)
-        return out, (out[2], packed.shape)
-
-    def rowseg_table_bwd(res, cotangents):
-        gid_s, pshape = res
-        rows = cotangents[0][:NUM_FEATURES].T      # (P, F)
-        dbody = jnp.zeros((pshape[0], NUM_FEATURES), rows.dtype)
-        dbody = dbody.at[gid_s].add(rows)
-        dpacked = jnp.concatenate(
-            [dbody, jnp.zeros((pshape[0], pshape[1] - NUM_FEATURES),
-                              rows.dtype)], axis=-1)
-        return dpacked, None, None, None, None
-
-    rowseg_table.defvjp(rowseg_table_fwd, rowseg_table_bwd)
-    return rowseg_table
-
-
-@functools.lru_cache(maxsize=None)
-def _make_fused_table(use_kernel: bool, interpret: bool):
-    """Single-radix-pass feature-table builder (factory; one custom_vjp
-    instance per expansion strategy).
-
-    The sort key packs (tile, quantized depth) into one i32:
-    key = (tile << depth_keep_bits) | (depth_bits >> (31 - depth_keep_bits))
-    where depth_bits is the order-isomorphic i32 view of the positive f32
-    depth. One stable radix pass replaces the two of the exact path. Ties
-    within a depth quantum fall back to gaussian-id order (stable sort
-    over the ascending pre-sort gid). depth_keep_bits/ntx_s are traced
-    i32 scalars.
-
-    packed is (N+1, 16): the 10 feature columns plus SIX exact-in-f32
-    integer payload columns — xy0 = x0 | y0<<12 (24-bit), nxm = nx |
-    masked<<6 (7-bit), and the four 16-bit halves of the two coverage-
-    mask words. Small non-negative integers encode EXACTLY as f32, so
-    the payload survives both expansion strategies (the Pallas kernel's
-    one-hot MXU matmul would canonicalise NaN bit patterns that a raw
-    i32 bitcast can produce). The destination tile of each pair is
-    derived from the expanded columns + the pair's rank (_decode_tiles);
-    only the 10 feature columns ride the sort as carried values (sorting
-    (key, gid) alone and row-gathering afterwards loses: the SHUFFLED
-    (P, 10) gather costs ~4.7x the carried sort, bench_sort
-    'sortgather').
-
-    Expansion strategy here is the XLA ascending row gather
-    packed[gid_pre] (TPU row gathers run ~10 ns/row: ~25 ms at P=3.9M,
-    bench_profile r4) — the measured-fallback path. The DEFAULT TPU path
-    is _make_stream_table (the round-5 Pallas stream front-end, ~20x
-    cheaper); this factory remains the spec path for CPU and the
-    expand_kernel=False A/B.
-
-    Returns (feats (TABLE_ROWS, P), tile_s (P,), gid_s (P,)).
-    """
-    del use_kernel, interpret  # kept for the lru_cache key / API compat
-
-    def gather_cols(args):
-        packed, gid_pre = args
-        table = packed[gid_pre]                # (P, 16) ascending gather
-        return tuple(table[:, i] for i in range(packed.shape[1]))
-
-    @jax.custom_vjp
-    def fused_table(packed, rank, gid_pre, depth_keep_bits, ntx_s):
-        n = packed.shape[0] - 1
-        all_cols = gather_cols((packed, gid_pre))
-        return _decode_key_sort(all_cols, rank, gid_pre, n,
-                                depth_keep_bits, ntx_s)
-
-    def fused_table_fwd(packed, rank, gid_pre, depth_keep_bits, ntx_s):
-        out = fused_table(packed, rank, gid_pre, depth_keep_bits, ntx_s)
-        return out, (out[2], packed.shape)
-
-    def fused_table_bwd(res, cotangents):
-        gid_s, pshape = res
-        rows = cotangents[0][:NUM_FEATURES].T      # (P, F)
-        # Whole-row scatter-add, then zero columns for the integer
-        # payload (mixing an advanced index with a column slice in one
-        # scatter lowers to a pathologically slow XLA scatter on TPU).
-        dbody = jnp.zeros((pshape[0], NUM_FEATURES), rows.dtype)
-        dbody = dbody.at[gid_s].add(rows)
-        dpacked = jnp.concatenate(
-            [dbody, jnp.zeros((pshape[0], pshape[1] - NUM_FEATURES),
-                              rows.dtype)], axis=-1)
-        return dpacked, None, None, None, None
-
-    fused_table.defvjp(fused_table_fwd, fused_table_bwd)
-    return fused_table
+_fused_feature_table.defvjp(_fused_feature_table_fwd,
+                            _fused_feature_table_bwd)
 
 
 @jax.custom_vjp
@@ -748,8 +373,8 @@ def _presorted_feature_table(packed, rank, gid_pre, ntx_s):
     packed: (N+1, NUM_FEATURES + 4) rows in depth order — the 10 feature
     columns, the packed coverage geometry + two mask words (as in the
     fused path), and the ORIGINAL gaussian id bitcast to f32 (so pair_gid
-    can be reported in caller space without a (P,)-element gather, which
-    costs ~30 ms at P=2^22). gid_pre indexes the DEPTH-SORTED rows,
+    can be reported in caller space without a separate (P,)-element
+    gather). gid_pre indexes the DEPTH-SORTED rows,
     ascending.
 
     Because the pair stream is generated in depth order and the sort is
@@ -799,6 +424,29 @@ def _presorted_feature_table_bwd(res, cotangents):
 
 _presorted_feature_table.defvjp(_presorted_feature_table_fwd,
                                 _presorted_feature_table_bwd)
+
+
+def expand_pairs(ncov: jnp.ndarray, p: int):
+    """Expand per-gaussian pair counts (N,) into a P-slot pair table.
+
+    Scatters each gaussian's id at its first slot and forward-fills with
+    cummax, then derives each pair's rank within its gaussian's run from
+    the id transitions with one more cummax. A sentinel gaussian N owns
+    the pad tail. Returns (gid (P,), rank (P,), total demand ())."""
+    n = ncov.shape[0]
+    ncov_ext = jnp.concatenate([ncov, jnp.array([p], jnp.int32)])
+    ends_cum = jnp.cumsum(ncov_ext)
+    offsets_ext = ends_cum - ncov_ext          # exclusive
+    total = ends_cum[-2] if n else jnp.int32(0)
+    first_slot = jnp.where(ncov_ext > 0, offsets_ext, p)  # no empties
+    iota_n = jnp.arange(n + 1, dtype=jnp.int32)
+    gid_at = jnp.zeros((p,), jnp.int32).at[first_slot].max(
+        iota_n, mode="drop")
+    gid = jax.lax.cummax(gid_at)
+    slot = jnp.arange(p, dtype=jnp.int32)
+    prev_gid = jnp.concatenate([jnp.full((1,), -1, jnp.int32), gid[:-1]])
+    rank = slot - jax.lax.cummax(jnp.where(gid != prev_gid, slot, 0))
+    return gid, rank, total
 
 
 def bin_splats(splats: ProjectedSplats, cfg: RasterConfig,
@@ -875,7 +523,7 @@ def bin_splats(splats: ProjectedSplats, cfg: RasterConfig,
         # enumerated (the ellipse misses many corner cells of the
         # bounding rectangle). Output is pixel-identical; every O(P)
         # binning pass and the per-tile compositing shrink.
-        testable, mlo, mhi, ncov_x = _coverage_masks_dispatch(
+        testable, mlo, mhi, ncov_x = _coverage_masks(
             splats, cfg, x0, y0, nx, ny,
             cell_w=g * cfg.tile_width, cell_h=g * cfg.tile_height)
         ncov = jnp.where(testable, ncov_x, ncov).astype(jnp.int32)
@@ -884,9 +532,8 @@ def bin_splats(splats: ProjectedSplats, cfg: RasterConfig,
         mlo = mhi = flag = jnp.zeros_like(ncov)
 
     # Packed per-gaussian coverage geometry: x0/y0 need <=12 bits each
-    # (4096-tile axes), nx 6 bits, exact-mask flag at bit 30. Bitcast to
-    # f32, it rides the one per-pair row gather — a separate (P,)
-    # geometry gather costs ~30 ms at P=2^22.
+    # (4096-tile axes), nx 6 bits, exact-mask flag at bit 30. It rides
+    # the one per-pair row gather instead of a separate (P,) gather.
     geom = jnp.where(ncov > 0, x0 | (y0 << 12) | (nx << 24) | flag, 0)
     body = jnp.concatenate([
         splats.xy, splats.conic, splats.color,
@@ -919,90 +566,15 @@ def bin_splats(splats: ProjectedSplats, cfg: RasterConfig,
         mhi = mhi[perm]
         ncov = ncov[perm]
 
-    # Expand to (gaussian, tile) pairs: scatter each gaussian's id (and its
-    # first slot) at that slot, forward-fill both with cummax — two radix-
-    # friendly scans, no division, no binary search. (The obvious
-    # alternatives lower terribly on TPU: jnp.repeat ~60x and
-    # searchsorted-per-slot ~120x slower.) A sentinel gaussian with
-    # coverage p owns the pad tail.
-    ncov_ext = jnp.concatenate([ncov, jnp.array([p], jnp.int32)])
-    ends_cum = jnp.cumsum(ncov_ext)
-    offsets_ext = ends_cum - ncov_ext          # exclusive
-    total = ends_cum[-2] if n else jnp.int32(0)
-    # The round-5 stream front-end consumes the OFFSETS directly: the
-    # N-point scatter (~8 ns/point serialized on TPU) and the P-wide
-    # cummax/rank scans all collapse into the kernel's in-register
-    # binary search (see _make_stream_table); only the fallback paths
-    # below pay the XLA scatter + scans.
-    use_stream = (cfg.fused_sort_key and 31 - tile_bits >= 16
-                  and not use_presort and cfg.expand_kernel and n > 0
-                  and (jax.default_backend() == "tpu"
-                       or FORCE_EXPAND_KERNEL))
-    interp = jax.default_backend() != "tpu"
-    r_seg = cfg.rowseg_buckets
-    nrows_g = -(-num_rows // g)
-    use_rowseg = use_stream and r_seg > 1 and nrows_g >= r_seg
-    # Tile-group rows per row bucket / per-bucket chunk-aligned capacity.
-    # The internal table grows to R * cap >= pair_capacity so that every
-    # bucket is a whole number of expand-kernel chunks (blocks must not
-    # straddle buckets); both cond branches use the grown capacity.
-    if use_rowseg:
-        chunk_e, win_seg = _stream_sizes(interp, rowseg=True,
-                                         r_buckets=r_seg)
-        if cfg.rowseg_bounds:
-            seg_bounds = tuple(int(b) for b in cfg.rowseg_bounds)
-            assert (len(seg_bounds) == r_seg + 1
-                    and seg_bounds[0] == 0
-                    and seg_bounds[-1] >= nrows_g
-                    and all(b1 > b0 for b0, b1 in
-                            zip(seg_bounds, seg_bounds[1:]))), \
-                "rowseg_bounds must be (R+1,) ascending local group rows"
-        else:
-            # Equal row split; trailing buckets may sit past the grid
-            # (they bin nothing and sort pure pads).
-            rows_pb = -(-nrows_g // r_seg)
-            seg_bounds = tuple(r * rows_pb for r in range(r_seg + 1))
-        cap_seg = -(-(-(-p // r_seg)) // chunk_e) * chunk_e
-        p = r_seg * cap_seg
-    # Per-tile global ids this call reports ranges for (hoisted: the
-    # segmented path needs them inside its cond branches).
-    if g > 1:
-        # Every member tile of a group points at the group's range
-        # (rows offset by this device's strip start).
-        rows_t = row_lo + jnp.arange(num_local, dtype=jnp.int32) // ntx
-        cols_t = jnp.arange(num_local, dtype=jnp.int32) % ntx
-        tids = (rows_t // g) * ntx_key + cols_t // g
-    else:
-        tids = row_lo * ntx + jnp.arange(num_local, dtype=jnp.int32)
-    starts = ends = num_pairs_v = overflow_v = None
-    if not use_stream:
-        first_slot = jnp.where(ncov_ext > 0, offsets_ext, p)  # no empties
-        iota_n = jnp.arange(n + 1, dtype=jnp.int32)
-        gid_at = jnp.zeros((p,), jnp.int32).at[first_slot].max(
-            iota_n, mode="drop")
-        gid = jax.lax.cummax(gid_at)
-        # Rank within the owner's range from gid TRANSITIONS: segment
-        # starts are where gid changes, forward-filled with one more
-        # cummax. Scan-free alternatives measured at P=2^22 on v5e:
-        # offsets_ext[gid] (a (P,) gather) ~31 ms, a second
-        # scatter+cummax fill ~12 ms, this ~4 ms — TPU gathers run ~1
-        # element/cycle, shifts/compares run 8x128/cycle.
-        slot = jnp.arange(p, dtype=jnp.int32)
-        prev_gid = jnp.concatenate(
-            [jnp.full((1,), -1, jnp.int32), gid[:-1]])
-        rank = slot - jax.lax.cummax(jnp.where(gid != prev_gid, slot, 0))
-        is_pad = gid >= n
+    gid, rank, total = expand_pairs(ncov, p)
+    is_pad = gid >= n
 
-    # Per-gaussian packed rows (N+1, 16); row N stays zero for pad pairs, so
-    # padding renders as alpha=0 and a garbage-free conic. Expanded to the
-    # (P, 16) pair table BEFORE the sort: pre-sort gid is ascending, so this
-    # gather is sequential, and the columns then ride the radix sorts as
-    # carried values (cheaper than a shuffled post-sort gather).
-    # Chunk-aligned capacity means the last tile's floor-aligned chunk walk
-    # never overruns the table — no extra pad column block needed.
+    # Per-gaussian packed rows; row N stays zero for pad pairs, so padding
+    # renders as alpha=0 and a garbage-free conic. Expanded to the pair
+    # table BEFORE the sort: pre-sort gid is ascending, so this gather is
+    # sequential, and the columns then ride the sort as carried values.
     assert p % cfg.chunk_size == 0, "pair_capacity must be chunk-aligned"
-    if not use_stream:
-        gid_pre = jnp.where(is_pad, n, gid)
+    gid_pre = jnp.where(is_pad, n, gid)
     # Sort-path selection. Fused: single (tile | quantized-depth) i32 key
     # when the tile id and a useful depth share an i32 (>=16 depth bits).
     # Presort: gaussians already depth-ordered above, tile-only key.
@@ -1029,9 +601,8 @@ def bin_splats(splats: ProjectedSplats, cfg: RasterConfig,
         feats, tile_s, _, gid_s = _presorted_feature_table(
             packed, rank, gid_pre, jnp.int32(ntx_key))
     elif cfg.fused_sort_key and 31 - tile_bits >= 16:
-        # 16-column packed layout for the fused path: integer payloads
-        # as exact-in-f32 pieces (small non-negative ints encode exactly
-        # in f32) so every expansion strategy moves them verbatim.
+        # 16-column packed layout for the fused path: integer payloads as
+        # exact-in-f32 pieces (small non-negative ints encode exactly).
         flag01 = flag >> 30
         live = ncov > 0
 
@@ -1046,81 +617,9 @@ def bin_splats(splats: ProjectedSplats, cfg: RasterConfig,
         packed = jnp.concatenate(
             [jnp.concatenate([body, intcols], axis=-1),
              jnp.zeros((1, NUM_FEATURES + 6), jnp.float32)])
-        if use_stream and use_rowseg:
-            from gaussian_splat_ipu_tpu.render.kernels import (
-                expand as expand_mod, scan as scan_mod)
-
-            dkb = jnp.int32(31 - tile_bits)
-            ntx_s = jnp.int32(ntx_key)
-            gy_lo = row_lo // g
-            counts = _bucket_counts(y0, nx, ny, flag >> 30, mlo, mhi,
-                                    gy_lo, seg_bounds)
-            excl = scan_mod.row_cumsum_exclusive(counts,
-                                                 interpret=interp)
-            totals = excl[:, -1] + counts[:, -1]           # (R,)
-            bases = jnp.arange(r_seg, dtype=jnp.int32) * cap_seg
-            offs_abs = bases[:, None] + excl
-            live_end = bases + jnp.minimum(totals, cap_seg)
-            # Rank shift: a pair's decode rank addresses the WHOLE
-            # row-major footprint, so subtract the gaussian's pair
-            # count in earlier buckets from its in-bucket offset.
-            before = jnp.cumsum(counts, axis=0) - counts
-            offs2_abs = offs_abs - before
-            tail = jnp.full((r_seg, win_seg + 256),
-                            jnp.int32(0x7FFFFFFF))
-            offs_rows = jnp.concatenate(
-                [offs_abs, live_end[:, None], tail], axis=1)
-            offs2_rows = jnp.concatenate(
-                [offs2_abs, live_end[:, None], tail], axis=1)
-            _, _, _, span_s = expand_mod.window_starts_from_offsets_seg(
-                offs_rows, cap_seg, n, chunk=chunk_e)
-            live_total = jnp.sum(jnp.minimum(totals, cap_seg))
-            stream_fn = _make_stream_table(interp, p)
-            rowseg_fn = _make_rowseg_table(interp, p, r_seg, cap_seg)
-            gr_t = tids // ntx_key
-            rel_t = gr_t - gy_lo
-            b_t = jnp.zeros_like(rel_t)
-            for _b in seg_bounds[1:-1]:
-                b_t = b_t + (rel_t >= _b).astype(jnp.int32)
-            b_t = jnp.clip(b_t, 0, r_seg - 1)
-
-            def br_seg(pk):
-                f, ts, gs = rowseg_fn(pk, offs_rows, offs2_rows, dkb,
-                                      ntx_s)
-                t2 = ts.reshape(r_seg, cap_seg)
-                posl = jax.vmap(lambda rw: jnp.searchsorted(
-                    rw, tids, side="left"))(t2).astype(jnp.int32)
-                posr = jax.vmap(lambda rw: jnp.searchsorted(
-                    rw, tids, side="right"))(t2).astype(jnp.int32)
-                st = b_t * cap_seg + jnp.take_along_axis(
-                    posl, b_t[None, :], axis=0)[0]
-                en = b_t * cap_seg + jnp.take_along_axis(
-                    posr, b_t[None, :], axis=0)[0]
-                return (f, ts, gs, st, en, live_total,
-                        total - live_total)
-
-            def br_flat(pk):
-                f, ts, gs = stream_fn(pk, offsets_ext, dkb, ntx_s)
-                st = jnp.searchsorted(ts, tids,
-                                      side="left").astype(jnp.int32)
-                en = jnp.searchsorted(ts, tids,
-                                      side="right").astype(jnp.int32)
-                return (f, ts, gs, st, en, jnp.minimum(total, p),
-                        jnp.maximum(total - p, 0))
-
-            (feats, tile_s, gid_s, starts, ends, num_pairs_v,
-             overflow_v) = jax.lax.cond(span_s <= win_seg, br_seg,
-                                        br_flat, packed)
-        elif use_stream:
-            feats, tile_s, gid_s = _make_stream_table(
-                interp, p)(
-                packed, offsets_ext, jnp.int32(31 - tile_bits),
-                jnp.int32(ntx_key))
-        else:
-            feats, tile_s, gid_s = _make_fused_table(
-                False, False)(
-                packed, rank, gid_pre, jnp.int32(31 - tile_bits),
-                jnp.int32(ntx_key))
+        feats, tile_s, gid_s = _fused_feature_table(
+            packed, rank, gid_pre, jnp.int32(31 - tile_bits),
+            jnp.int32(ntx_key))
     else:
         # Exact path computes the destination tile here (extra (P,)
         # geometry gathers; this is the debug/fallback path).
@@ -1133,18 +632,22 @@ def bin_splats(splats: ProjectedSplats, cfg: RasterConfig,
         feats, tile_s, gid_s = _sorted_feature_table(packed, tile, gid_pre)
     pad_s = tile_s >= num_keys_total
 
-    if starts is None:
-        starts = jnp.searchsorted(tile_s, tids,
-                                  side="left").astype(jnp.int32)
-        ends = jnp.searchsorted(tile_s, tids,
-                                side="right").astype(jnp.int32)
-        num_pairs_v = jnp.minimum(total, p)
-        overflow_v = jnp.maximum(total - p, 0)
+    # Per-tile global ids this call reports ranges for.
+    if g > 1:
+        # Every member tile of a group points at the group's range
+        # (rows offset by this device's strip start).
+        rows_t = row_lo + jnp.arange(num_local, dtype=jnp.int32) // ntx
+        cols_t = jnp.arange(num_local, dtype=jnp.int32) % ntx
+        tids = (rows_t // g) * ntx_key + cols_t // g
+    else:
+        tids = row_lo * ntx + jnp.arange(num_local, dtype=jnp.int32)
     return BinnedSplats(
         features=feats,
         pair_gid=jnp.where(pad_s, n, gid_s).astype(jnp.int32),
-        tile_starts=starts,
-        tile_ends=ends,
-        num_pairs=num_pairs_v,
-        overflow=overflow_v,
+        tile_starts=jnp.searchsorted(tile_s, tids,
+                                     side="left").astype(jnp.int32),
+        tile_ends=jnp.searchsorted(tile_s, tids,
+                                   side="right").astype(jnp.int32),
+        num_pairs=jnp.minimum(total, p),
+        overflow=jnp.maximum(total - p, 0),
     )

@@ -1,31 +1,30 @@
-"""Pallas TPU rasterize kernel: VMEM-resident tile compositing.
+"""Rasterize kernels (Pallas, Triton route): per-pixel tile compositing.
 
-The TPU-native heart of the framework — the role of the reference's fused
-GSplat vertex (codelets/splat/codelets.cpp:143-641), redesigned for the
-VPU/MXU instead of translated:
+The role of the reference's fused GSplat vertex
+(codelets/splat/codelets.cpp:143-641), as one program per framebuffer tile:
 
-  * one grid step per framebuffer tile; the (4, NPIX) tile output lives in
-    VMEM for the whole step (the reference pins its 32x20 tile in SRAM);
-  * the tile's depth-sorted gaussian range streams from HBM in (C, 16)
-    chunks via double-buffered async DMA (the reference streams arrivals
-    through fixed neighbour channels);
-  * within a chunk there is NO serial gaussian loop (the reference's
-    per-pixel loop, codelets.cpp:362-412): alphas for all C gaussians x
-    NPIX pixels evaluate as one (C, NPIX) VPU block, transmittance
-    prefixes T_i = T_in*prod_{j<i}(1-a_j) come from a log2(C)-step
-    shift-and-add doubling scan (exclusive cumsum of log1p(-a), exact
-    f32 on the VPU), and colour accumulates with one MXU contraction
-    (C,3)^T @ (C,NPIX) -> (3, NPIX);
-  * per-tile early exit: a while_loop stops as soon as every pixel's
-    transmittance terminates (reference T < 1e-4 break,
-    codelets.cpp:405-408) or the tile's range is exhausted — work per tile
-    is proportional to its own occupancy, which is the fix for the load
-    imbalance the reference documents as its hard problem (README.md:14-17).
+  * the tile's pixels are one block; each pixel keeps its state in
+    registers (transmittance, the three colour sums, the position of its
+    terminating pair);
+  * the tile's depth-sorted range is walked front to back one pair at a
+    time, the pair's features broadcast to every pixel: the reference's
+    per-pixel loop (codelets.cpp:362-412), with its exact skip and break
+    rules (power > 0 or alpha < 1/255 skip; a pair whose blend would take T
+    below 1e-4 stops the pixel before it is blended, codelets.cpp:389-411);
+  * the walk is bounded by ``max_chunks_per_range * chunk_size`` pairs,
+    like the jnp spec (render/tile_raster.py), and the whole tile exits
+    as soon as every pixel has stopped, so the work per tile follows its
+    own occupancy, not the longest range in the frame.
 
-Layout invariants (see render/binning.py): features are feature-major
-(NUM_FEATURES, P) with P chunk-aligned so every chunk DMA is a 128-aligned
-contiguous slice; gaussian params become (C, 1) column slices broadcast
-against (1, NPIX) pixel rows after one small per-chunk transpose.
+The backward replays each pixel back to front from its final transmittance
+and contributor count (both saved by the forward), so its memory is
+O(pixels), not O(pixels * pairs). Per-pair gradients are summed over the
+tile's pixels; with ``tile_group == 1`` every pair belongs to one tile and
+is stored once, with ``tile_group > 1`` the member tiles of a group share
+the range and add into a zeroed buffer atomically.
+
+Which build runs (compiled or interpreted) is chosen per platform in
+``render/kernels/__init__.py``.
 """
 
 from __future__ import annotations
@@ -35,629 +34,252 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from gaussian_splat_ipu_tpu.render import binning as B
+from gaussian_splat_ipu_tpu.render.kernels import interpret_for
 from gaussian_splat_ipu_tpu.utils.config import RasterConfig
 
-
-def _kernel(starts_ref, ends_ref, off_ref, feat_ref, out_ref, nc_ref,
-            chunk_buf, sems, *, cfg: RasterConfig, need_aux: bool = True,
-            relaxed: bool = False):
-    """need_aux=False (inference): skip the per-pixel first-trigger
-    tracking and contributor-count output the backward replay needs.
-    relaxed=True (requires need_aux=False): additionally drop the strict
-    per-pixel break semantics — see RasterConfig.strict_termination."""
-    assert not (relaxed and need_aux)
-    lid = pl.program_id(0)           # local tile index within this shard
-    tid = off_ref[0] + lid           # global flat tile id (pixel coords)
-    c = cfg.chunk_size
-    npix = cfg.pixels_per_tile
-    ntx = cfg.tiles_x
-
-    start = starts_ref[lid]
-    # Bounded per-tile work, identical to the jnp spec's scan bound: at most
-    # max_chunks_per_tile * chunk_size pairs composite, counted from `start`
-    # (depth order means the dropped tail is the farthest, already-occluded
-    # gaussians — the graceful-degradation analogue of the reference's
-    # fixed-capacity channels, codelets.cpp:487-490).
-    end = jnp.minimum(ends_ref[lid],
-                      start + cfg.max_chunks_per_range * c)
-    # Floor-align the DMA base so every chunk offset is a multiple of C
-    # (Mosaic requires 128-aligned lane slices); pairs before `start` in the
-    # first chunk belong to the previous tile and are masked off. Empty
-    # tiles do no chunk work at all (cdiv alone would still walk the
-    # masked partial chunk containing `start`).
-    base = (start // c) * c
-    nchunks = jnp.where(end > start, pl.cdiv(end - base, c), 0)
-
-    # Pixel coordinates of this tile as (1, NPIX) rows, pixels on lanes.
-    idx = jax.lax.broadcasted_iota(jnp.int32, (1, npix), 1)
-    ox = (tid % ntx) * cfg.tile_width
-    oy = (tid // ntx) * cfg.tile_height
-    px = (idx % cfg.tile_width + ox).astype(jnp.float32)
-    py = (idx // cfg.tile_width + oy).astype(jnp.float32)
-
-    lane = jax.lax.broadcasted_iota(jnp.int32, (c, 1), 0)
-
-    def dma(slot, k):
-        off = pl.multiple_of(base + k * c, c)
-        return pltpu.make_async_copy(
-            feat_ref.at[:, pl.ds(off, c)], chunk_buf.at[slot],
-            sems.at[slot])
-
-    # Prologue: stage the first chunk.
-    @pl.when(nchunks > 0)
-    def _():
-        dma(0, 0).start()
-
-    if relaxed:
-        # Inference fast path: no per-pixel stop tracking. Pixels keep
-        # compositing until the TILE's max transmittance falls below the
-        # threshold; the per-pixel deviation vs strict semantics is
-        # bounded by the weight left at the strict stop point (see
-        # RasterConfig.strict_termination). ~25% fewer VPU passes/chunk.
-        def cond_r(state):
-            k, t, _color = state
-            return jnp.logical_and(k < nchunks,
-                                   jnp.max(t) >= cfg.transmittance_eps)
-
-        def body_r(state):
-            k, t, color = state
-            slot = jax.lax.rem(k, 2)
-            dma(slot, k).wait()
-            chunk = chunk_buf[slot].T                 # (C, TABLE_ROWS)
-
-            pos = base + k * c + lane                 # (C, 1)
-            valid = (pos >= start) & (pos < end)
-            gx = chunk[:, B.FEAT_X:B.FEAT_X + 1]
-            gy = chunk[:, B.FEAT_Y:B.FEAT_Y + 1]
-            ca = chunk[:, B.FEAT_CONIC_A:B.FEAT_CONIC_A + 1]
-            cb = chunk[:, B.FEAT_CONIC_B:B.FEAT_CONIC_B + 1]
-            cc = chunk[:, B.FEAT_CONIC_C:B.FEAT_CONIC_C + 1]
-            # Validity rides the (C, 1) opacity column instead of a
-            # (C, NPIX) mask pass: op == 0 => alpha == 0 => skipped.
-            op = jnp.where(valid, chunk[:, B.FEAT_OPACITY:
-                                        B.FEAT_OPACITY + 1], 0.0)
-
-            dx = gx - px                              # (C, NPIX)
-            dy = gy - py
-            power = (-0.5 * (ca * dx * dx + cc * dy * dy)
-                     - cb * dx * dy)
-            alpha = jnp.minimum(cfg.alpha_clamp, op * jnp.exp(power))
-            alpha = jnp.where((power > 0.0) | (alpha < cfg.alpha_min),
-                              0.0, alpha)
-
-            one_minus = 1.0 - alpha
-            incl = one_minus
-            sh = 1
-            while sh < c:
-                incl = incl * jnp.concatenate(
-                    [jnp.ones((sh, npix), jnp.float32), incl[:-sh]],
-                    axis=0)
-                sh *= 2
-            t_pre = t * jnp.concatenate(
-                [jnp.ones((1, npix), jnp.float32), incl[:-1]], axis=0)
-            # Gate each pair on its post-blend transmittance: test_t < eps
-            # excludes the trigger pair and (by monotonicity) everything
-            # after it — the COLOUR output matches the strict kernel
-            # exactly; only the final-transmittance output (alpha channel
-            # + background weight) decays past the strict frozen value,
-            # bounded by transmittance_eps / (1 - alpha_clamp).
-            test_t = t * incl
-            w = jnp.where(test_t < cfg.transmittance_eps, 0.0,
-                          alpha * t_pre)               # (C, NPIX)
-
-            rgb = chunk[:, B.FEAT_R:B.FEAT_B + 1]      # (C, 3)
-            color = color + jax.lax.dot_general(
-                rgb, w, (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST)   # (3, NPIX)
-            t = t * incl[-1:]
-
-            @pl.when(jnp.logical_and(
-                k + 1 < nchunks,
-                jnp.max(t) >= cfg.transmittance_eps))
-            def _():
-                dma(jax.lax.rem(k + 1, 2), k + 1).start()
-
-            return k + 1, t, color
-
-        t0 = jnp.ones((1, npix), jnp.float32)
-        color0 = jnp.zeros((3, npix), jnp.float32)
-        _, t, color = jax.lax.while_loop(
-            cond_r, body_r, (jnp.int32(0), t0, color0))
-        for ch in range(3):
-            out_ref[0, ch:ch + 1, :] = (color[ch:ch + 1, :]
-                                        + t * cfg.background[ch])
-        out_ref[0, 3:4, :] = 1.0 - t
-        # Contributor count: degraded (full range) — inference only.
-        nc_ref[0, 0:1, :] = jnp.full((1, npix),
-                                     (end - start).astype(jnp.float32))
-        return
-
-    def cond(state):
-        k, _t, _color, stopped, _sp = state
-        return jnp.logical_and(k < nchunks, jnp.min(stopped) < 0.5)
-
-    def body(state):
-        k, t, color, stopped, stop_pos = state
-        slot = jax.lax.rem(k, 2)
-        dma(slot, k).wait()
-        # One small (TABLE_ROWS, C) -> (C, TABLE_ROWS) transpose per chunk
-        # puts gaussians on sublanes as (C, 1) columns; pixels on lanes.
-        chunk = chunk_buf[slot].T                     # (C, TABLE_ROWS)
-
-        pos = base + k * c + lane                     # (C, 1)
-        valid = (pos >= start) & (pos < end)
-        gx = chunk[:, B.FEAT_X:B.FEAT_X + 1]
-        gy = chunk[:, B.FEAT_Y:B.FEAT_Y + 1]
-        ca = chunk[:, B.FEAT_CONIC_A:B.FEAT_CONIC_A + 1]
-        cb = chunk[:, B.FEAT_CONIC_B:B.FEAT_CONIC_B + 1]
-        cc = chunk[:, B.FEAT_CONIC_C:B.FEAT_CONIC_C + 1]
-        # Validity rides the (C, 1) opacity column instead of a (C, NPIX)
-        # mask pass: op == 0 => alpha == 0 < alpha_min => skipped, and
-        # zero alpha never triggers the break — identical semantics.
-        op = jnp.where(valid,
-                       chunk[:, B.FEAT_OPACITY:B.FEAT_OPACITY + 1], 0.0)
-
-        dx = gx - px                                   # (C, NPIX)
-        dy = gy - py
-        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-        alpha = jnp.minimum(cfg.alpha_clamp, op * jnp.exp(power))
-        skip = (power > 0.0) | (alpha < cfg.alpha_min)
-        alpha = jnp.where(skip, 0.0, alpha)
-
-        # Multiplicative domain (same formulation as the jnp spec): the
-        # transmittance prefix is a cumulative product of (1 - a) along
-        # the gaussian (sublane) axis, built by log2(C) shift-and-multiply
-        # doubling steps. No log1p/exp round trip — that log-domain
-        # version cost two transcendental (C, NPIX) passes per chunk.
-        one_minus = 1.0 - alpha
-        incl = one_minus
-        sh = 1
-        while sh < c:
-            incl = incl * jnp.concatenate(
-                [jnp.ones((sh, npix), jnp.float32), incl[:-sh]], axis=0)
-            sh *= 2
-        t_pre = t * jnp.concatenate(
-            [jnp.ones((1, npix), jnp.float32), incl[:-1]], axis=0)
-        test_t = t * incl
-        trig = jnp.where((test_t < cfg.transmittance_eps) & (alpha > 0.0),
-                         1.0, 0.0)
-        # Within a chunk test_t is monotone non-increasing in depth, so
-        # "any trigger at or before i" collapses to the ELEMENTWISE test:
-        # every element past the first trigger either fails it too
-        # (alpha > 0) or contributes nothing (alpha == 0). No scan needed.
-        live = (1.0 - trig) * (1.0 - stopped)
-        w = alpha * t_pre * live                       # (C, NPIX)
-
-        rgb = chunk[:, B.FEAT_R:B.FEAT_B + 1]          # (C, 3)
-        # Tiny contraction (3 x NPIX x C): full f32 passes cost nothing and
-        # keep colour exact vs the jnp spec.
-        color = color + jax.lax.dot_general(
-            rgb, w, (((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST)       # (3, NPIX)
-        # T freezes at the FIRST trigger's prefix (first = largest t_pre);
-        # without a trigger it advances by the whole-chunk product.
-        chunk_any = jnp.max(trig, axis=0, keepdims=True)
-        frozen = jnp.max(t_pre * trig, axis=0, keepdims=True)
-        t = jnp.where(stopped > 0.0, t,
-                      jnp.where(chunk_any > 0.0, frozen, t * incl[-1:]))
-        if need_aux:
-            # Track the first trigger's global pair index per pixel: the
-            # backward kernel replays compositing up to (excluding) it.
-            trig_pos = jnp.where(trig > 0.0, pos.astype(jnp.float32),
-                                 jnp.float32(3e38))
-            stop_pos = jnp.minimum(stop_pos,
-                                   jnp.min(trig_pos, axis=0,
-                                           keepdims=True))
-        # A pixel that triggered anywhere in this chunk never resumes.
-        stopped = jnp.maximum(stopped, chunk_any)
-
-        # Speculatively stage the next chunk if we will keep going.
-        @pl.when(jnp.logical_and(k + 1 < nchunks, jnp.min(stopped) < 0.5))
-        def _():
-            dma(jax.lax.rem(k + 1, 2), k + 1).start()
-
-        return k + 1, t, color, stopped, stop_pos
-
-    t0 = jnp.ones((1, npix), jnp.float32)
-    color0 = jnp.zeros((3, npix), jnp.float32)
-    stopped0 = jnp.zeros((1, npix), jnp.float32)
-    sp0 = jnp.full((1, npix), 3e38, jnp.float32)
-    k, t, color, _, stop_pos = jax.lax.while_loop(
-        cond, body, (jnp.int32(0), t0, color0, stopped0, sp0))
-
-    # Background as python-float constants (a jnp const would be captured).
-    for ch in range(3):
-        out_ref[0, ch:ch + 1, :] = (color[ch:ch + 1, :]
-                                    + t * cfg.background[ch])
-    out_ref[0, 3:4, :] = 1.0 - t
-    # Contributor count (pairs from `start`, trigger excluded — the spec
-    # breaks BEFORE blending, reference codelets.cpp:405-408). f32 is
-    # exact: pair indices < 2^24. Without aux tracking stop_pos stays at
-    # its init and this degrades to end - start (defined, unused).
-    end_f = end.astype(jnp.float32)
-    nc_ref[0, 0:1, :] = (jnp.minimum(stop_pos, end_f)
-                         - start.astype(jnp.float32))
+# Pairs composited between two tile-wide "has every pixel stopped?" tests
+# (each test is a reduction across the block).
+EXIT_TEST_EVERY = 16
+NUM_WARPS = 4
+_RUNNING = int(jnp.iinfo(jnp.int32).max)  # stop position of a live pixel
 
 
-def _pallas_forward(features, starts, ends, offset, cfg: RasterConfig,
-                    interpret: bool, need_aux: bool = True,
-                    relaxed: bool = False):
-    c = cfg.chunk_size
-    npix = cfg.pixels_per_tile
-    num_tiles = starts.shape[0]  # tiles in this shard (== cfg.num_tiles
-    #                              for the single-device path)
-    if not interpret and (c % 128 != 0 or npix % 128 != 0):
-        raise ValueError(
-            "on TPU hardware chunk_size and tile pixel count must be "
-            f"multiples of 128 (got chunk={c}, npix={npix}): DMA slices and "
-            "lane layouts must align to the 128-wide vector unit")
-    feats = features  # (16, PA), chunk-aligned per-tile ranges
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(num_tiles,),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=[
-            pl.BlockSpec((1, 4, npix), lambda i, s, e, o: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, npix), lambda i, s, e, o: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, B.TABLE_ROWS, c), jnp.float32),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
-    kernel = functools.partial(_kernel, cfg=cfg, need_aux=need_aux,
-                               relaxed=relaxed)
-    # Per tile: ~20 elementwise (C, NPIX) passes (alpha eval + doubling
-    # scan) + the (3, C, NPIX) colour contraction.
-    flops_est = npix * c * 26
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((num_tiles, 4, npix), jnp.float32),
-            jax.ShapeDtypeStruct((num_tiles, 1, npix), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=64 * 1024 * 1024),
-        cost_estimate=pl.CostEstimate(
-            flops=flops_est * num_tiles,
-            bytes_accessed=feats.size * 4 + num_tiles * 4 * npix * 4,
-            transcendentals=3 * npix * c * num_tiles),
-        interpret=interpret,
-    )(starts, ends, offset, feats)
-
-
-def _bwd_kernel(starts_ref, ends_ref, off_ref, feat_ref, gout_ref, tn_ref,
-                nc_ref, dinit_ref, dfeat_ref, fbuf, gbuf, sems, *,
-                cfg: RasterConfig):
-    """Backward rasterize: per-pair feature gradients, back-to-front.
-
-    Replays each tile's depth range in REVERSE chunk order, reconstructing
-    the per-gaussian transmittance from the saved final value
-    (T_i = T_end / suffix-prod(1-a)) instead of storing the forward
-    intermediates — O(pixels) memory against the jnp spec's O(pixels*pairs)
-    (the standard 3DGS backward recurrence, re-derived for chunked MXU
-    suffix scans). dL/d(alpha_i) = T_i*(c_i.u) - (sigma_i + gT*T_n)/(1-a_i)
-    where sigma_i suffix-accumulates a_j T_j (c_j.u). Geometry gradients
-    come from pixel-basis moments: one (C, NPIX) x (NPIX, 6) matmul per
-    chunk yields every sum the conic/mean chain rule needs.
-
-    Gradients accumulate into dfeat via read-modify-write chunk DMAs; the
-    1D grid is sequential ('arbitrary'), so the boundary chunk shared by two
-    adjacent tiles is read after the previous tile's write completes.
-    """
-    del dinit_ref  # aliased zero-init of dfeat_ref
+def _tile_geometry(starts_ref, ends_ref, off_ref, cfg: RasterConfig,
+                   npix_p: int):
+    """This program's tile: range [start, end), pixel coordinates, and the
+    mask of real pixels (the block is padded to a power of two)."""
     lid = pl.program_id(0)
     tid = off_ref[0] + lid
-    c = cfg.chunk_size
-    npix = cfg.pixels_per_tile
-    ntx = cfg.tiles_x
-
     start = starts_ref[lid]
-    end = jnp.minimum(ends_ref[lid], start + cfg.max_chunks_per_range * c)
-    base = (start // c) * c
-    # Pairs past the furthest contributor of ANY pixel got zero weight in
-    # the forward (early termination) and have zero gradients: clip the
-    # reverse walk there instead of replaying the occluded tail.
-    max_contrib = jnp.max(nc_ref[0]).astype(jnp.int32)
-    end = jnp.minimum(end, start + max_contrib)
-    nchunks = jnp.where(end > start, pl.cdiv(end - base, c), 0)
+    end = jnp.minimum(ends_ref[lid],
+                      start + cfg.max_chunks_per_range * cfg.chunk_size)
+    idx = jax.lax.broadcasted_iota(jnp.int32, (npix_p,), 0)
+    ox = jax.lax.rem(tid, cfg.tiles_x) * cfg.tile_width
+    oy = jax.lax.div(tid, cfg.tiles_x) * cfg.tile_height
+    px = (jax.lax.rem(idx, cfg.tile_width) + ox).astype(jnp.float32)
+    py = (jax.lax.div(idx, cfg.tile_width) + oy).astype(jnp.float32)
+    return lid, start, end, px, py, idx < cfg.pixels_per_tile
 
-    idx = jax.lax.broadcasted_iota(jnp.int32, (1, npix), 1)
-    ox = (tid % ntx) * cfg.tile_width
-    oy = (tid // ntx) * cfg.tile_height
-    px = (idx % cfg.tile_width + ox).astype(jnp.float32)
-    py = (idx // cfg.tile_width + oy).astype(jnp.float32)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (c, 1), 0)
 
-    def suffix_incl(x):
-        # Inclusive suffix sum along sublanes by doubling (exact f32; the
-        # same replacement as the forward's cumsum — one (C, C) triangular
-        # MXU matmul would need 6 full-precision passes).
-        sh = 1
-        while sh < c:
-            x = x + jnp.concatenate(
-                [x[sh:], jnp.zeros((sh, npix), jnp.float32)], axis=0)
-            sh *= 2
-        return x
+def _pair(feat_ref, i, end, px, py, cfg: RasterConfig):
+    """Features of pair i and its per-pixel alpha with the skip rules
+    applied; a pair at or past `end` gets zero alpha (its row index is
+    clamped into the table, so the loads stay in bounds).
 
-    def suffix_prod_incl(x):
-        # Multiplicative counterpart (transmittance suffix products).
-        sh = 1
-        while sh < c:
-            x = x * jnp.concatenate(
-                [x[sh:], jnp.ones((sh, npix), jnp.float32)], axis=0)
-            sh *= 2
-        return x
+    Returns (feature scalars, dx, dy, unclamped alpha, alpha)."""
+    row = jnp.minimum(i, feat_ref.shape[1] - 1)
+    f = [feat_ref[k, row] for k in range(B.NUM_FEATURES)]
+    dx = f[B.FEAT_X] - px
+    dy = f[B.FEAT_Y] - py
+    power = (-0.5 * (f[B.FEAT_CONIC_A] * dx * dx
+                     + f[B.FEAT_CONIC_C] * dy * dy)
+             - f[B.FEAT_CONIC_B] * dx * dy)
+    a_raw = f[B.FEAT_OPACITY] * jnp.exp(power)
+    alpha = jnp.minimum(cfg.alpha_clamp, a_raw)
+    skip = (power > 0.0) | (alpha < cfg.alpha_min) | (i >= end)
+    return f, dx, dy, a_raw, jnp.where(skip, 0.0, alpha)
 
-    u = gout_ref[0, 0:3, :]                     # dL/dC (3, NPIX)
-    g_a = gout_ref[0, 3:4, :]                   # dL/d(alpha out)
-    t_n = tn_ref[0]                             # (1, NPIX) final T
+
+def _fwd_kernel(starts_ref, ends_ref, off_ref, feat_ref, out_ref, aux_ref, *,
+                cfg: RasterConfig, npix_p: int):
+    lid, start, end, px, py, real = _tile_geometry(
+        starts_ref, ends_ref, off_ref, cfg, npix_p)
+    eps = cfg.transmittance_eps
+
+    def step(i, carry):
+        t, color, stop = carry
+        f, *_, alpha = _pair(feat_ref, i, end, px, py, cfg)
+        test_t = t * (1.0 - alpha)
+        running = stop == _RUNNING
+        trig = running & (alpha > 0.0) & (test_t < eps)
+        live = running & jnp.logical_not(trig)
+        w = jnp.where(live, alpha * t, 0.0)
+        color = tuple(c + w * f[k] for c, k in
+                      zip(color, (B.FEAT_R, B.FEAT_G, B.FEAT_B)))
+        return jnp.where(live, test_t, t), color, jnp.where(trig, i, stop)
+
+    def batch(carry):
+        i, st = carry
+        st = jax.lax.fori_loop(0, EXIT_TEST_EVERY,
+                               lambda k, s: step(i + k, s), st)
+        return i + EXIT_TEST_EVERY, st
+
+    def cond(carry):
+        i, (_, _, stop) = carry
+        return (i < end) & (jnp.max(stop) == _RUNNING)
+
+    zeros = jnp.zeros((npix_p,), jnp.float32)
+    state = (jnp.ones((npix_p,), jnp.float32), (zeros, zeros, zeros),
+             jnp.where(real, _RUNNING, start))
+    _, (t, color, stop) = jax.lax.while_loop(cond, batch, (start, state))
+    for ch in range(3):
+        out_ref[lid, ch, :] = color[ch] + t * cfg.background[ch]
+    out_ref[lid, 3, :] = 1.0 - t
+    # For the backward: the contributor count, pairs from `start` before the
+    # terminating one (the break comes before the blend; f32 is exact below
+    # 2^24 pairs), and the final T itself. T rebuilt as 1 - alpha would
+    # lose its low bits: near the 1e-4 stop, one ulp of alpha is ~6e-4 of T,
+    # and every replayed T_i of the pixel would carry that error.
+    aux_ref[lid, 0, :] = (jnp.minimum(stop, end) - start).astype(jnp.float32)
+    aux_ref[lid, 1, :] = t
+
+
+def _bwd_kernel(starts_ref, ends_ref, off_ref, feat_ref, gout_ref, aux_ref,
+                dinit_ref, dfeat_ref, *, cfg: RasterConfig, npix_p: int):
+    """Per-pair feature gradients, replayed back to front.
+
+    T before pair i is T after it divided by (1 - a_i), starting from the
+    saved final T; only pairs before a pixel's terminating pair are live
+    for it. dL/da_i = T_i (c_i . u) - (S_i + gT T_n) / (1 - a_i), where S_i
+    sums a_j T_j (c_j . u) over the live pairs behind i and gT is the
+    cotangent of the final T (background colour and alpha channel)."""
+    del dinit_ref  # aliased to dfeat_ref: the zeroed gradient buffer
+    lid, start, end, px, py, _ = _tile_geometry(
+        starts_ref, ends_ref, off_ref, cfg, npix_p)
+    # Pairs past the furthest contributor of every pixel got no weight in
+    # the forward and have zero gradients: the replay starts there.
+    live_end = start + aux_ref[lid, 0, :].astype(jnp.int32)
+    end = jnp.minimum(end, jnp.max(live_end))
+    u = [gout_ref[lid, ch, :] for ch in range(3)]
     bg = cfg.background
-    g_t = (bg[0] * u[0:1] + bg[1] * u[1:2] + bg[2] * u[2:3]) - g_a
-    g_tn = g_t * t_n                            # (1, NPIX)
-    live_limit = start.astype(jnp.float32) + nc_ref[0]  # (1, NPIX)
+    t_n = aux_ref[lid, 1, :]
+    g_tn = (bg[0] * u[0] + bg[1] * u[1] + bg[2] * u[2]
+            - gout_ref[lid, 3, :]) * t_n
+    rows = jax.lax.broadcasted_iota(jnp.int32, (B.TABLE_ROWS,), 0)
 
-    def fdma(slot, k):
-        off = pl.multiple_of(base + k * c, c)
-        return pltpu.make_async_copy(feat_ref.at[:, pl.ds(off, c)],
-                                     fbuf.at[slot], sems.at[slot])
-
-    def gdma_read(slot, k):
-        off = pl.multiple_of(base + k * c, c)
-        return pltpu.make_async_copy(dfeat_ref.at[:, pl.ds(off, c)],
-                                     gbuf.at[slot], sems.at[2])
-
-    def gdma_write(slot, k):
-        off = pl.multiple_of(base + k * c, c)
-        return pltpu.make_async_copy(gbuf.at[slot],
-                                     dfeat_ref.at[:, pl.ds(off, c)],
-                                     sems.at[3 + slot])
-
-    hp = dict(preferred_element_type=jnp.float32,
-              precision=jax.lax.Precision.HIGHEST)
-
-    # Prologue: stage the last chunk (reverse walk starts there).
-    @pl.when(nchunks > 0)
-    def _():
-        fdma(jax.lax.rem(nchunks - 1, 2), nchunks - 1).start()
-
-    def body(j, carry):
-        t_carry, sigma = carry                  # T after / suffix q beyond
-        k = nchunks - 1 - j
-        slot = jax.lax.rem(k, 2)
-        fdma(slot, k).wait()
-        # Stage the next (reverse) chunk while this one computes.
-        @pl.when(k > 0)
-        def _():
-            fdma(jax.lax.rem(k - 1, 2), k - 1).start()
-        chunk = fbuf[slot].T                    # (C, TABLE_ROWS)
-
-        pos = base + k * c + lane
-        valid = (pos >= start) & (pos < end)
-        gx = chunk[:, B.FEAT_X:B.FEAT_X + 1]
-        gy = chunk[:, B.FEAT_Y:B.FEAT_Y + 1]
-        ca = chunk[:, B.FEAT_CONIC_A:B.FEAT_CONIC_A + 1]
-        cb = chunk[:, B.FEAT_CONIC_B:B.FEAT_CONIC_B + 1]
-        cc = chunk[:, B.FEAT_CONIC_C:B.FEAT_CONIC_C + 1]
-        # Validity rides the (C, 1) opacity column (see forward kernel).
-        op = jnp.where(valid,
-                       chunk[:, B.FEAT_OPACITY:B.FEAT_OPACITY + 1], 0.0)
-        rgb = chunk[:, B.FEAT_R:B.FEAT_B + 1]   # (C, 3)
-
-        dx = gx - px
-        dy = gy - py
-        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-        a_raw = op * jnp.exp(power)
-        alpha = jnp.minimum(cfg.alpha_clamp, a_raw)
-        skip = (power > 0.0) | (alpha < cfg.alpha_min)
-        alpha = jnp.where(skip, 0.0, alpha)
-        live = pos.astype(jnp.float32) < live_limit        # (C, NPIX)
-        a_eff = jnp.where(live, alpha, 0.0)
-
-        # T_i = T_end / prod_{j>=i}(1 - a_j): the suffix product is
-        # bounded below by T_end / T_start >= ~transmittance_eps within
-        # the contributing range, so the reciprocal is safe in f32.
-        rp = 1.0 / suffix_prod_incl(1.0 - a_eff)
-        t_i = t_carry * rp                                 # (C, NPIX)
-        cu = jax.lax.dot_general(rgb, u, (((1,), (0,)), ((), ())), **hp)
-        w = a_eff * t_i
-        q = w * cu
-        sig = suffix_incl(q) - q + sigma                   # strict suffix
-
-        d_alpha = jnp.where(
-            a_eff > 0.0,
-            t_i * cu - (sig + g_tn) / (1.0 - a_eff), 0.0)
-        unclamped = jnp.where(a_raw < cfg.alpha_clamp, 1.0, 0.0)
-        dpow = d_alpha * a_eff * unclamped                 # (C, NPIX)
-
-        # Pixel sums the conic/mean chain rule needs. Direct elementwise
-        # products + lane reductions: expanding these as (C,NPIX)@(NPIX,6)
-        # pixel-basis moments is one MXU matmul but catastrophically
-        # cancels in f32 (px^2 ~ 1e6 at 720p vs dx ~ 1).
-        def rsum(x):
-            return jnp.sum(x, axis=1, keepdims=True)       # (C, 1)
-
-        m1 = rsum(dpow)
-        sdx = rsum(dpow * dx)
-        sdy = rsum(dpow * dy)
-        sdxx = rsum(dpow * dx * dx)
-        sdyy = rsum(dpow * dy * dy)
-        sdxy = rsum(dpow * dx * dy)
-
-        d_rgb = jax.lax.dot_general(w, u, (((1,), (1,)), ((), ())),
-                                    **hp)                  # (C, 3)
-        grow = jnp.concatenate([
-            -(ca * sdx + cb * sdy),                        # d mean x
-            -(cc * sdy + cb * sdx),                        # d mean y
-            -0.5 * sdxx,                                   # d conic a
-            -sdxy,                                         # d conic b
-            -0.5 * sdyy,                                   # d conic c
-            d_rgb,                                         # d colour
-            m1 / jnp.maximum(op, cfg.alpha_min),           # d opacity
-            jnp.zeros((c, B.TABLE_ROWS - 9), jnp.float32),
-        ], axis=1)                                         # (C, TABLE_ROWS)
-
-        # Gradient writes are double-buffered and NOT awaited inline: the
-        # write of chunk k drains while chunks k-1, k-2 compute; before
-        # reusing a slot (every second iteration) we wait its previous
-        # write, and the epilogue waits the final two so the next grid
-        # step's read-modify-write (sequential grid) observes everything.
-        # This removes a full chunk-store stall per chunk from the
-        # backward's critical path (VERDICT r1 weak #5 — the forward was
-        # already pipelined, the backward was not).
-        @pl.when(j >= 2)
-        def _():
-            gdma_write(slot, k + 2).wait()
-
-        # Chunk ownership: a tile's FIRST chunk (k == 0, processed last
-        # in the reverse walk) can be shared with the previous range and
-        # always needs a read-modify-write. Interior chunks are
-        # exclusively owned — and may be written fresh — ONLY by the
-        # first grid-order member of the tile group that owns the range:
-        # with tile_group > 1 all g^2 member tiles replay the SAME
-        # range, so later members must RMW every chunk or they erase the
-        # earlier members' interior contributions (round-5 bug fix; the
-        # erasure needs group ranges longer than one chunk, which small
-        # grad-test scenes never produced). Sequential grid + the
-        # previous tile's epilogue write-drain => every read sees the
-        # previous tile's completed write.
+    def step(j, carry):
+        t, s = carry
+        i = end - 1 - j
+        f, dx, dy, a_raw, alpha = _pair(feat_ref, i, end, px, py, cfg)
+        a = jnp.where(i < live_end, alpha, 0.0)
+        one_minus = 1.0 - a
+        t_i = t / one_minus
+        cu = f[B.FEAT_R] * u[0] + f[B.FEAT_G] * u[1] + f[B.FEAT_B] * u[2]
+        w = a * t_i
+        d_alpha = jnp.where(a > 0.0, t_i * cu - (s + g_tn) / one_minus, 0.0)
+        dpow = jnp.where(a_raw < cfg.alpha_clamp, d_alpha * a, 0.0)
+        m1 = jnp.sum(dpow)
+        sdx = jnp.sum(dpow * dx)
+        sdy = jnp.sum(dpow * dy)
+        ca, cb, cc = (f[B.FEAT_CONIC_A], f[B.FEAT_CONIC_B],
+                      f[B.FEAT_CONIC_C])
+        grads = {
+            B.FEAT_X: -(ca * sdx + cb * sdy),
+            B.FEAT_Y: -(cc * sdy + cb * sdx),
+            B.FEAT_CONIC_A: -0.5 * jnp.sum(dpow * dx * dx),
+            B.FEAT_CONIC_B: -jnp.sum(dpow * dx * dy),
+            B.FEAT_CONIC_C: -0.5 * jnp.sum(dpow * dy * dy),
+            B.FEAT_R: jnp.sum(w * u[0]),
+            B.FEAT_G: jnp.sum(w * u[1]),
+            B.FEAT_B: jnp.sum(w * u[2]),
+            B.FEAT_OPACITY: m1 / jnp.maximum(f[B.FEAT_OPACITY],
+                                             cfg.alpha_min),
+        }
+        grow = jnp.zeros((B.TABLE_ROWS,), jnp.float32)
+        for k, v in grads.items():
+            grow = jnp.where(rows == k, v, grow)
         if cfg.tile_group > 1:
-            gg = cfg.tile_group
-            first_member = jnp.logical_and((tid % ntx) % gg == 0,
-                                           (tid // ntx) % gg == 0)
-            fresh = jnp.logical_and(k != 0, first_member)
+            # The g^2 member tiles of a group replay the same range.
+            plt.atomic_add(dfeat_ref, (slice(None), i), grow)
         else:
-            fresh = k != 0
+            dfeat_ref[:, i] = grow
+        return t_i, s + w * cu
 
-        @pl.when(jnp.logical_not(fresh))
-        def _():
-            r = gdma_read(slot, k)
-            r.start()
-            r.wait()
-
-        @pl.when(fresh)
-        def _():
-            gbuf[slot] = jnp.zeros((B.TABLE_ROWS, c), jnp.float32)
-
-        gbuf[slot] = gbuf[slot] + grow.T
-        gdma_write(slot, k).start()
-
-        t_carry = t_carry * rp[0:1]   # T before the chunk
-        sigma = sigma + jnp.sum(q, axis=0, keepdims=True)
-        return t_carry, sigma
-
-    t0 = t_n
-    sigma0 = jnp.zeros((1, npix), jnp.float32)
-    jax.lax.fori_loop(0, nchunks, body, (t0, sigma0))
-
-    # Drain the last two in-flight gradient writes (chunks 1 and 0 — the
-    # reverse walk always ends there) before the grid advances.
-    @pl.when(nchunks >= 2)
-    def _():
-        gdma_write(1, 1).wait()
-
-    @pl.when(nchunks >= 1)
-    def _():
-        gdma_write(0, 0).wait()
+    jax.lax.fori_loop(0, end - start, step,
+                      (t_n, jnp.zeros((npix_p,), jnp.float32)))
 
 
-def _pallas_backward(features, starts, ends, offset, gout, tn, nc,
-                     cfg: RasterConfig, interpret: bool):
-    c = cfg.chunk_size
+def _pad_pixels(x, npix_p: int):
+    """Pad the pixel (last) axis of a (T, C, NPIX) array to npix_p."""
+    pad = npix_p - x.shape[-1]
+    return x if pad == 0 else jnp.pad(x, ((0, 0), (0, 0), (0, pad)))
+
+
+def _params():
+    return dict(backend="triton",
+                compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
+                                                   num_stages=1))
+
+
+def _forward(features, starts, ends, offset, cfg: RasterConfig,
+             interpret: bool):
+    """(T_local, 4, NPIX) RGBA tiles and the backward's (T_local, 2,
+    npix_p) per-pixel contributor counts and final T."""
     npix = cfg.pixels_per_tile
+    npix_p = pl.next_power_of_2(npix)
     num_tiles = starts.shape[0]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
+    kernel = functools.partial(_fwd_kernel, cfg=cfg, npix_p=npix_p)
+    tiles, aux = pl.pallas_call(
+        kernel,
         grid=(num_tiles,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),                  # features
-            pl.BlockSpec((1, 4, npix), lambda i, s, e, o: (i, 0, 0),
-                         memory_space=pltpu.VMEM),              # gout
-            pl.BlockSpec((1, 1, npix), lambda i, s, e, o: (i, 0, 0),
-                         memory_space=pltpu.VMEM),              # t_n
-            pl.BlockSpec((1, 1, npix), lambda i, s, e, o: (i, 0, 0),
-                         memory_space=pltpu.VMEM),              # n_contrib
-            pl.BlockSpec(memory_space=pl.ANY),                  # dfeat init
+        out_shape=[
+            jax.ShapeDtypeStruct((num_tiles, 4, npix_p), jnp.float32),
+            jax.ShapeDtypeStruct((num_tiles, 2, npix_p), jnp.float32),
         ],
-        out_specs=pl.BlockSpec(memory_space=pl.ANY),
-        scratch_shapes=[
-            pltpu.VMEM((2, B.TABLE_ROWS, c), jnp.float32),
-            pltpu.VMEM((2, B.TABLE_ROWS, c), jnp.float32),  # write slots
-            pltpu.SemaphoreType.DMA((5,)),
-        ],
-    )
-    kernel = functools.partial(_bwd_kernel, cfg=cfg)
-    dinit = jnp.zeros_like(features)
+        interpret=interpret,
+        name="rasterize_fwd",
+        **_params(),
+    )(starts, ends, offset, features)
+    return tiles[..., :npix], aux
+
+
+def _backward(features, starts, ends, offset, gout, aux,
+              cfg: RasterConfig, interpret: bool):
+    npix_p = pl.next_power_of_2(cfg.pixels_per_tile)
+    kernel = functools.partial(_bwd_kernel, cfg=cfg, npix_p=npix_p)
     return pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
+        grid=(starts.shape[0],),
         out_shape=jax.ShapeDtypeStruct(features.shape, jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),  # sequential grid: RMW-safe
-            vmem_limit_bytes=64 * 1024 * 1024),
-        input_output_aliases={7: 0},  # dfeat starts as the zeros input
+        input_output_aliases={6: 0},  # dfeat starts as the zeros input
         interpret=interpret,
-    )(starts, ends, offset, features, gout, tn, nc, dinit)
+        name="rasterize_bwd",
+        **_params(),
+    )(starts, ends, offset, features, _pad_pixels(gout, npix_p), aux,
+      jnp.zeros_like(features))
 
 
 def rasterize_tiles(binned: B.BinnedSplats, cfg: RasterConfig,
-                    interpret: bool | None = None,
+                    platform: str | None = None,
                     tile_offset=None) -> jnp.ndarray:
     """Rasterize binned splats -> (T_local, NPIX, 4) RGBA tile buffers.
 
+    platform: "gpu" or "cpu" (see render/kernels/__init__.py); None takes
+    the process's default backend.
     tile_offset: global flat tile id of binned.tile_starts[0] (traced scalar
     ok) — the distributed path renders a strip of tiles per device; the
     single-device path leaves it None (= 0, all tiles).
 
-    Forward and backward are both Pallas kernels (jax.custom_vjp); the jnp
-    formulation (render/tile_raster.py) is the mathematical spec both are
-    tested against. The forward additionally emits per-pixel contributor
-    counts + final transmittance, from which the backward reconstructs every
-    intermediate in reverse order with O(pixels) memory.
+    Forward and backward are both kernels (jax.custom_vjp); the jnp
+    formulation (render/tile_raster.py) is the spec both are tested
+    against. The forward also keeps per-pixel contributor counts and the
+    final transmittance, from which the backward rebuilds
+    every intermediate in reverse order with O(pixels) memory.
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-
-    starts = binned.tile_starts
-    ends = binned.tile_ends
-    if tile_offset is None:
-        tile_offset = 0
-    offset = jnp.asarray(tile_offset, jnp.int32).reshape((1,))
+    interpret = interpret_for(platform)
+    offset = jnp.asarray(0 if tile_offset is None else tile_offset,
+                         jnp.int32).reshape((1,))
 
     @jax.custom_vjp
     def raster(features, starts, ends, offset):
-        # Primal (inference) path: the backward-replay aux (per-pixel
-        # first-trigger positions) is skipped; raster_fwd below runs the
-        # full kernel when differentiating. With strict_termination=False
-        # the per-pixel break machinery is dropped too (bounded-error
-        # fast path — training still differentiates the strict kernel).
-        tiles, _ = _pallas_forward(features, starts, ends, offset, cfg,
-                                   interpret, need_aux=False,
-                                   relaxed=not cfg.strict_termination)
+        tiles, _ = _forward(features, starts, ends, offset, cfg, interpret)
         return tiles.transpose(0, 2, 1)  # (T_local, NPIX, 4)
 
     def raster_fwd(features, starts, ends, offset):
-        tiles, nc = _pallas_forward(features, starts, ends, offset, cfg,
-                                    interpret)
-        t_n = 1.0 - tiles[:, 3:4, :]
+        tiles, aux = _forward(features, starts, ends, offset, cfg, interpret)
         return tiles.transpose(0, 2, 1), (features, starts, ends, offset,
-                                          t_n, nc)
+                                          aux)
 
     def raster_bwd(res, g):
-        features, starts, ends, offset, t_n, nc = res
+        features, starts, ends, offset, aux = res
         gout = g.transpose(0, 2, 1)  # (T_local, 4, NPIX)
-        df = _pallas_backward(features, starts, ends, offset, gout, t_n,
-                              nc, cfg, interpret)
+        df = _backward(features, starts, ends, offset, gout, aux, cfg,
+                       interpret)
         return df, None, None, None
 
     raster.defvjp(raster_fwd, raster_bwd)
-    return raster(binned.features, starts, ends, offset)
+    return raster(binned.features, binned.tile_starts, binned.tile_ends,
+                  offset)

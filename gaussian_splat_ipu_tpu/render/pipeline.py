@@ -1,6 +1,6 @@
 """Full render pipeline: project -> bin -> rasterize -> image.
 
-The TPU-native equivalent of the reference's per-frame "project" program
+The equivalent of the reference's per-frame "project" program
 (src/splat/ipu_rasteriser.cpp:393-405: broadcast MVP; run GSplat on every
 tile; run the exchange lattice; stream back the framebuffer) — except the
 whole thing is one jitted XLA program per frame with exact per-frame
@@ -17,7 +17,8 @@ import jax.numpy as jnp
 from gaussian_splat_ipu_tpu.models.camera import Camera
 from gaussian_splat_ipu_tpu.models.gaussians import GaussianModel
 from gaussian_splat_ipu_tpu.render import binning, tile_raster
-from gaussian_splat_ipu_tpu.render.projection import project_gaussians
+from gaussian_splat_ipu_tpu.render.projection import (ProjectedSplats,
+                                                      project_gaussians)
 from gaussian_splat_ipu_tpu.utils.config import RasterConfig
 
 
@@ -47,6 +48,23 @@ def _untile_crop(tiles: jnp.ndarray, cfg: RasterConfig) -> jnp.ndarray:
     return x[:cfg.image_height, :cfg.image_width]
 
 
+def truncated_pairs(counts: jnp.ndarray, cfg: RasterConfig,
+                    row_lo=0) -> jnp.ndarray:
+    """Pairs past the per-range work bound (max_chunks_per_range *
+    chunk_size), tallied once per tile group: with tile_group > 1 every
+    member tile reports its group's range. counts are per-tile range
+    lengths of tile rows starting at row_lo (traced ok)."""
+    over = jnp.maximum(counts - cfg.max_chunks_per_range * cfg.chunk_size,
+                       0)
+    g = cfg.tile_group
+    if g > 1:
+        idx = jnp.arange(counts.shape[0])
+        rep = (((row_lo + idx // cfg.tiles_x) % g == 0)
+               & ((idx % cfg.tiles_x) % g == 0))
+        over = jnp.where(rep, over, 0)
+    return jnp.sum(over)
+
+
 def render(model: GaussianModel, camera: Camera, cfg: RasterConfig,
            use_pallas: bool = True,
            xy_probe: jnp.ndarray | None = None) -> RenderOutput:
@@ -54,7 +72,15 @@ def render(model: GaussianModel, camera: Camera, cfg: RasterConfig,
 
         jit_render = jax.jit(render, static_argnums=(2, 3))
     """
-    splats = project_gaussians(model, camera, cfg, xy_probe=xy_probe)
+    return render_splats(project_gaussians(model, camera, cfg,
+                                           xy_probe=xy_probe),
+                         cfg, use_pallas)
+
+
+def render_splats(splats: ProjectedSplats, cfg: RasterConfig,
+                  use_pallas: bool = True) -> RenderOutput:
+    """Bin and rasterize already-projected splats: render() after its
+    projection. Jit with static cfg/use_pallas."""
     binned = binning.bin_splats(splats, cfg)
     if use_pallas:
         from gaussian_splat_ipu_tpu.render.kernels import rasterize
@@ -63,23 +89,12 @@ def render(model: GaussianModel, camera: Camera, cfg: RasterConfig,
         tiles = tile_raster.rasterize_tiles_jnp(binned, cfg)
     image = _untile_crop(tiles, cfg)
     # With tile grouping, counts reports each tile's ACTUAL compositing
-    # range (= its whole group's pairs) — honest work telemetry — but
-    # the truncated tally dedupes to one representative tile per group
-    # so dropped pairs aren't counted g^2 times.
+    # range (= its whole group's pairs) — honest work telemetry.
     counts = binned.tile_ends - binned.tile_starts
-    work_cap = cfg.max_chunks_per_range * cfg.chunk_size
-    over = jnp.maximum(counts - work_cap, 0)
-    g = cfg.tile_group
-    if g > 1:
-        idx = jnp.arange(counts.shape[0])
-        rep = ((idx // cfg.tiles_x) % g == 0) & ((idx % cfg.tiles_x) % g
-                                                 == 0)
-        over = jnp.where(rep, over, 0)
-    truncated = jnp.sum(over)
     return RenderOutput(image=image, tile_counts=counts,
                         overflow=binned.overflow, num_pairs=binned.num_pairs,
                         visible=splats.radius[:, 0] > 0.0,
-                        truncated=truncated)
+                        truncated=truncated_pairs(counts, cfg))
 
 
 def render_image(model: GaussianModel, camera: Camera,
@@ -112,13 +127,7 @@ def render_depth(model: GaussianModel, camera: Camera, cfg: RasterConfig,
     d = splats.depth
     depth_splats = splats._replace(
         color=jnp.stack([d, d * d, jnp.zeros_like(d)], axis=-1))
-    binned = binning.bin_splats(depth_splats, cfg)
-    if use_pallas:
-        from gaussian_splat_ipu_tpu.render.kernels import rasterize
-        tiles = rasterize.rasterize_tiles(binned, cfg)
-    else:
-        tiles = tile_raster.rasterize_tiles_jnp(binned, cfg)
-    img = _untile_crop(tiles, cfg)
+    img = render_splats(depth_splats, cfg, use_pallas).image
     alpha = img[..., 3]
     safe = jnp.maximum(alpha, 1e-8)
     mean = img[..., 0] / safe

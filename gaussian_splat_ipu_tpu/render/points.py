@@ -5,7 +5,7 @@ Parity with the reference's CPU rasteriser (src/splat/cpu_rasteriser.cpp:
 and additively splat a single pixel per point, counting how many landed
 on-screen. The reference uses this as a runtime-switchable device for visual
 sanity checks (src/main/splat.cpp:250-256); ours is additionally jittable
-and runs on TPU (scatter-add instead of OpenMP atomics).
+and runs on the device (scatter-add instead of OpenMP atomics).
 
 Also provides the per-tile workload histogram of cpu_rasteriser.cpp:65-92.
 """

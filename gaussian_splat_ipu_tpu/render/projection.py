@@ -1,8 +1,8 @@
 """Projection stage: gaussian parameters -> screen-space splats.
 
-The vectorized TPU equivalent of the per-gaussian front half of the
+The vectorized equivalent of the per-gaussian front half of the
 reference's fused GSplat vertex (codelets/splat/codelets.cpp:437-505):
-MVP transform (one MXU matmul over all N), viewport mapping, EWA cov2D,
+MVP transform (one matmul over all N), viewport mapping, EWA cov2D,
 conic + radius, frustum cull. Runs unchanged on every path (oracle renderer,
 binning pipeline, distributed shard_map) — one projection, many consumers.
 """
@@ -42,7 +42,7 @@ def project_gaussians(model: GaussianModel, camera: Camera,
     means = model.means.astype(jnp.float32)
     n = means.shape[0]
 
-    # World -> view (MXU) and view -> clip.
+    # World -> view and view -> clip.
     view_h = transforms.transform_points(camera.view, means)      # (N, 4)
     clip = transforms.transform_points(camera.proj, view_h)        # (N, 4)
     t_view = view_h[:, :3]
@@ -91,8 +91,10 @@ def project_gaussians(model: GaussianModel, camera: Camera,
         # InterfaceServer.hpp env_rotation packets). Identity at zero.
         rot = jnp.dot(transforms.rotate_y(camera.env_rot[1])[:3, :3],
                       transforms.rotate_x(camera.env_rot[0])[:3, :3],
-                      preferred_element_type=jnp.float32)
-        dirs = jnp.dot(dirs, rot.T, preferred_element_type=jnp.float32)
+                      preferred_element_type=jnp.float32,
+                      precision=jax.lax.Precision.HIGHEST)
+        dirs = jnp.dot(dirs, rot.T, preferred_element_type=jnp.float32,
+                       precision=jax.lax.Precision.HIGHEST)
         color = sh.eval_sh(model.sh, dirs, degree)
 
     # Frustum cull: in front of the near plane and on screen (with radius

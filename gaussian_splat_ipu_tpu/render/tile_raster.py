@@ -1,19 +1,17 @@
 """Tiled rasterization, chunked-scan formulation (pure jnp).
 
-This is the mathematical specification of the Pallas rasterize kernel
-(render/kernels/rasterize.py) and the v1 backward path: identical chunked
-front-to-back compositing, expressed with lax.scan + cumsum so JAX autodiff
-produces exact gradients.
-
-The key TPU-native idea (vs the reference's per-pixel serial gaussian loop,
-codelets/splat/codelets.cpp:362-412): process gaussians in depth-ordered
-chunks of C. Within a chunk, per-pixel transmittance prefixes are
+This is the mathematical specification of the rasterize kernels
+(render/kernels/rasterize.py): the same front-to-back compositing,
+expressed with lax.scan + cumprod so JAX autodiff produces exact gradients.
+The kernels walk a tile's pairs one at a time; this spec processes them in
+depth-ordered chunks of C. Within a chunk, per-pixel transmittance
+prefixes are
 
     T_i = T_in * prod_{j<i} (1 - a_j)
 
-an associative scan that maps onto one (NPIX, C) cumprod — a log2(C)-step
-shift-and-multiply doubling scan in the Pallas version — and the colour
-accumulation sum_i w_i * rgb_i is one (NPIX, C) @ (C, 3) MXU matmul.
+one (NPIX, C) cumprod, and the colour accumulation sum_i w_i * rgb_i is one
+(NPIX, C) @ (C, 3) matmul. The spec has no early exit: it scans all
+max_chunks_per_range chunks of every tile.
 The reference's exact break semantics (codelets.cpp:389-411: skip when
 power>0 or alpha<1/255; break *before* blending when T*(1-a) < 1e-4) are
 reproduced with masks; skipped gaussians never trigger the break.
@@ -58,8 +56,8 @@ def composite_chunk(t_in, stopped_in, alpha, rgb, cfg: RasterConfig):
     Returns (color_add (NPIX, 3), t_out, stopped_out).
     """
     # Multiplicative domain: T prefixes are cumulative products of (1 - a)
-    # directly (no log1p/exp round trip — same formulation as the Pallas
-    # kernel so both stay allclose).
+    # directly (no log1p/exp round trip — the kernels multiply too, so both
+    # stay allclose).
     one_minus = 1.0 - alpha
     incl = jnp.cumprod(one_minus, axis=1)                # (NPIX, C)
     t_pre = t_in * jnp.concatenate(
@@ -74,8 +72,9 @@ def composite_chunk(t_in, stopped_in, alpha, rgb, cfg: RasterConfig):
     trig = (test_t < cfg.transmittance_eps) & (alpha > 0.0)
     live = (~trig) & (~stopped_in)
     w = alpha * t_pre * live.astype(jnp.float32)         # (NPIX, C)
-    # Full-precision contraction: this path is the gradient spec, and the
-    # TPU default (bf16 passes) would introduce ~1e-2 colour error.
+    # Full-precision contraction: this path is the gradient spec, and a
+    # reduced-precision default (TF32, bf16 passes) would introduce ~1e-3
+    # colour error.
     color_add = jnp.dot(w, rgb, preferred_element_type=jnp.float32,
                         precision=jax.lax.Precision.HIGHEST)
     chunk_any = jnp.any(trig, axis=1, keepdims=True)

@@ -1,9 +1,9 @@
 """Render engine lifecycle: device selection, AOT compile, program registry.
 
-TPU-native rebuild of the reference core runtime (include/ipu/ipu_utils.hpp):
+Rebuild of the reference core runtime (include/ipu/ipu_utils.hpp):
 
-  * DeviceInterface / DeferredDevice (:79-172)  -> select_device(): picks the
-    JAX backend; "cpu model" fallback parity with useIpuModel (:98-106).
+  * DeviceInterface / DeferredDevice (:79-172)  -> select_device(): the GPU,
+    or the CPU when asked for explicitly (useIpuModel parity, :98-106).
   * GraphManager compileOrLoad/prepareEngine/execute (:523-623) ->
     RenderEngine: registers named jittable programs, AOT-compiles them
     (jit(...).lower().compile()), then runs by name.
@@ -22,6 +22,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import os
+import pathlib
 import time
 from typing import Any, Callable, Dict, Optional
 
@@ -30,6 +32,12 @@ import jax
 from gaussian_splat_ipu_tpu.utils.config import RuntimeConfig
 
 log = logging.getLogger("gsplat")
+
+# The compile cache's fixed home inside the checkout (listed in .gitignore):
+# the cache is keyed by path too, so a directory that moves never hits.
+DEFAULT_CACHE_DIR = str(pathlib.Path(__file__).resolve().parents[2]
+                        / ".jax_cache")
+CACHE_ENV = "JAX_COMPILATION_CACHE_DIR"
 
 
 def setup_logging(level: str = "info") -> None:
@@ -45,22 +53,35 @@ def setup_logging(level: str = "info") -> None:
 
 def select_device(use_cpu_model: bool = False):
     """Acquire the compute device (DeferredDevice::getIpuHardware parity,
-    ipu_utils.hpp:110-121): prefer TPU, else fall back to the CPU 'model'."""
-    if not use_cpu_model:
-        try:
-            tpus = [d for d in jax.devices() if d.platform == "tpu"]
-            if tpus:
-                return tpus[0]
-        except RuntimeError:
-            pass
-    return jax.devices("cpu")[0]
+    ipu_utils.hpp:110-121): the first GPU, or the CPU 'model' when asked
+    for it. Without a GPU this raises; it never falls back to the CPU."""
+    if use_cpu_model:
+        return jax.devices("cpu")[0]
+    gpus = [d for d in jax.devices() if d.platform == "gpu"]
+    if not gpus:
+        raise RuntimeError(
+            f"no GPU found (JAX devices: {jax.devices()}); pass "
+            "--device cpu to run on the CPU")
+    return gpus[0]
 
 
-def enable_compilation_cache(cache_dir: str) -> None:
+def compile_cache_dir(requested: str = "") -> str:
+    """Where the persistent compile cache lives: $JAX_COMPILATION_CACHE_DIR
+    when set (nothing overrides it), else `requested`, else
+    DEFAULT_CACHE_DIR inside the checkout."""
+    return os.environ.get(CACHE_ENV) or requested or DEFAULT_CACHE_DIR
+
+
+def enable_compilation_cache(requested: str = "") -> str:
     """Persistent compile cache — the saveExe/loadExe analogue
-    (ipu_utils.hpp:59-76), keyed by HLO hash instead of a filename."""
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    (ipu_utils.hpp:59-76), keyed by HLO hash instead of a filename.
+
+    With $JAX_COMPILATION_CACHE_DIR set, JAX reads the variable itself and
+    this sets no directory. Returns the directory in use."""
+    cache_dir = compile_cache_dir(requested)
+    if not os.environ.get(CACHE_ENV):
+        jax.config.update("jax_compilation_cache_dir", cache_dir)
+    return cache_dir
 
 
 @dataclasses.dataclass
@@ -83,8 +104,7 @@ class RenderEngine:
     def __init__(self, config: RuntimeConfig = RuntimeConfig()):
         self.config = config
         self.programs: Dict[str, CompiledProgram] = {}
-        if config.compile_cache_dir:
-            enable_compilation_cache(config.compile_cache_dir)
+        enable_compilation_cache(config.compile_cache_dir)
         self.device = select_device(config.use_cpu_model)
         log.info("engine device: %s", self.device)
 

@@ -52,12 +52,13 @@ def init_exposure_state(num_views: int, lr: float) -> ExposureState:
 def apply_exposure(image: jnp.ndarray, mat: jnp.ndarray) -> jnp.ndarray:
     """Affine colour map on the RGB channels of an (H, W, C>=3) image.
 
-    One (HW, 3) x (3, 3) matmul + bias — MXU-shaped, negligible next to
-    the render. Extra channels (alpha) pass through untouched.
+    One (HW, 3) x (3, 3) matmul + bias, negligible next to the render.
+    Extra channels (alpha) pass through untouched.
     """
     rgb = image[..., :3]
     out = jnp.einsum("ij,hwj->hwi", mat[:, :3], rgb,
-                     preferred_element_type=jnp.float32) + mat[:, 3]
+                     preferred_element_type=jnp.float32,
+                     precision=jax.lax.Precision.HIGHEST) + mat[:, 3]
     if image.shape[-1] > 3:
         out = jnp.concatenate([out, image[..., 3:]], axis=-1)
     return out

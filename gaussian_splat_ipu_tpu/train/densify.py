@@ -3,7 +3,7 @@ training (the 3DGS densification mechanism, Kerbl et al. 2023 §5.2).
 
 The reference is forward-only and has nothing like this (SURVEY.md §7 —
 training is the north-star extension); this module supplies it in a
-TPU-native, fully static-shape form:
+fully static-shape form that compiles once:
 
 - The model lives in a FIXED-CAPACITY buffer of `capacity` slots plus an
   `alive` mask; split/clone children are scattered into free (dead) slots

@@ -43,8 +43,8 @@ def _gaussian_window(size: int, sigma: float):
 def _blur(img: jnp.ndarray, window: jnp.ndarray) -> jnp.ndarray:
     """Separable depthwise Gaussian blur of an (H, W, C) image.
 
-    Two rank-1 depthwise convolutions (feature_group_count=C) — small convs
-    the MXU handles directly; no im2col materialisation.
+    Two rank-1 depthwise convolutions (feature_group_count=C) — small
+    convs XLA handles directly; no im2col materialisation.
     """
     c = img.shape[-1]
     x = img[None].transpose(0, 3, 1, 2)  # (1, C, H, W)

@@ -47,7 +47,7 @@ def se3_exp(delta: jnp.ndarray) -> jnp.ndarray:
     its gradient) is exact and smooth at the zero initialisation.
     """
     w, v = delta[:3], delta[3:]
-    th2 = jnp.dot(w, w)
+    th2 = jnp.dot(w, w, precision=jax.lax.Precision.HIGHEST)
     small = th2 < 1e-8
     # Double-where: the unselected exact branch must still evaluate (and
     # differentiate) finitely at th -> 0, else its NaN poisons the
@@ -60,14 +60,16 @@ def se3_exp(delta: jnp.ndarray) -> jnp.ndarray:
     c = jnp.where(small, 1.0 / 6.0 - th2 / 120.0,
                   (th - jnp.sin(th)) / (th2s * th))
     k = _hat(w)
-    k2 = jnp.dot(k, k, preferred_element_type=jnp.float32)
+    k2 = jnp.dot(k, k, preferred_element_type=jnp.float32,
+                 precision=jax.lax.Precision.HIGHEST)
     eye = jnp.eye(3, dtype=delta.dtype)
     r = eye + a * k + b * k2
     vmat = eye + b * k + c * k2
     out = jnp.eye(4, dtype=delta.dtype)
     out = out.at[:3, :3].set(r)
     out = out.at[:3, 3].set(jnp.dot(vmat, v,
-                                    preferred_element_type=jnp.float32))
+                                    preferred_element_type=jnp.float32,
+                                    precision=jax.lax.Precision.HIGHEST))
     return out
 
 
@@ -75,7 +77,8 @@ def apply_delta(camera: Camera, delta: jnp.ndarray) -> Camera:
     """Left-multiply the view by the exp of a (6,) tangent delta."""
     corr = se3_exp(delta)
     return Camera(view=jnp.dot(corr, camera.view,
-                               preferred_element_type=jnp.float32),
+                               preferred_element_type=jnp.float32,
+                               precision=jax.lax.Precision.HIGHEST),
                   proj=camera.proj, env_rot=camera.env_rot)
 
 

@@ -1,6 +1,6 @@
 """Remote UI server: TCP packet protocol for interactive viewing.
 
-TPU-native rebuild of the reference InterfaceServer
+Rebuild of the reference InterfaceServer
 (include/remote_ui/InterfaceServer.hpp): a TCP server thread exchanging
 typed packets with a remote viewer. The reference uses its packetcomms
 submodule (binary mux) + FFmpeg video packets; we use a dependency-free
@@ -53,7 +53,7 @@ class UiState:
     z: float = 0.0
     exposure: float = 1.0
     gamma: float = 1.0
-    device: str = "tpu"
+    device: str = "gpu"
     stop: bool = False
     detach: bool = False
     consumed: bool = True

@@ -15,9 +15,9 @@ import dataclasses
 from typing import Tuple
 
 # Reference workload constants (tile_config.hpp:5-15): 1280x720 image split
-# into 40x36 = 1440 tiles of 32x20 px. On TPU the tile must be VPU/lane
-# friendly: the flattened pixel count should be a multiple of 8*128=1024 so a
-# framebuffer tile maps exactly onto VPU registers. Default 32x32 = 1024 px.
+# into 40x36 = 1440 tiles of 32x20 px. Here a tile is one kernel block of
+# pixels, padded to a power of two; the default 32x32 = 1024 px needs no
+# padding.
 DEFAULT_IMAGE_WIDTH = 1280
 DEFAULT_IMAGE_HEIGHT = 720
 
@@ -31,14 +31,11 @@ class RasterConfig:
 
     image_width: int = DEFAULT_IMAGE_WIDTH
     image_height: int = DEFAULT_IMAGE_HEIGHT
-    # TPU-native tile: 32x32 px = 1024 px = 8 full VPU sublane groups.
-    # (The reference's 32x20 IPU tile would waste 84% of the 128-wide lanes.)
+    # 32x32 px = 1024 px per tile: one power-of-two kernel block.
     tile_width: int = 32
     tile_height: int = 32
-    # Gaussians are streamed through the rasterizer in chunks of this many;
-    # the front-to-back compositing over a chunk is evaluated with a
-    # triangular-matrix cumsum on the MXU, so this should be an MXU-friendly
-    # contraction size.
+    # The jnp spec composites gaussians in chunks of this many (one cumprod
+    # per chunk); the per-range work bound below counts in chunks too.
     chunk_size: int = 128
     # Capacity of the (gaussian, tile) pair table. The reference bounds the
     # analogous resource with fixed 300-slot exchange channels and a
@@ -54,7 +51,7 @@ class RasterConfig:
     # (codelets/splat/codelets.cpp:622,470).
     max_tiles_per_axis: int = 16
     # Max chunks any one tile will composite (bounds per-tile work in BOTH
-    # the Pallas kernel and the jnp spec — they truncate identically).
+    # the kernel and the jnp spec — they truncate identically).
     max_chunks_per_tile: int = 128
     # Early termination threshold on transmittance, reference
     # codelets.cpp:405-408.
@@ -78,23 +75,11 @@ class RasterConfig:
     # Pack (tile, depth) into ONE i32 radix key: the depth keeps
     # 31 - ceil(log2(num_tiles + 2)) bits of its (order-isomorphic) f32 bit
     # pattern — 21 bits at 720p, i.e. 8 exponent + 13 mantissa bits, a
-    # relative depth resolution of ~1e-4. Halves the binning sort cost
-    # (one radix pass instead of two). Compositing order can differ from
+    # relative depth resolution of ~1e-4. One sort pass instead of two.
+    # Compositing order can differ from
     # the exact sort only for gaussians closer together than that
     # resolution; set False for the exact two-pass (tile, full-depth) sort.
     fused_sort_key: bool = True
-    # Pair-table expansion strategy for the fused sort path. True
-    # (default since round 5): the Pallas stream-expand v2 kernel
-    # (render/kernels/expand.py) — within-128-lane dynamic gather over a
-    # 2048-row window per 2048-pair step, bit-identical to the XLA
-    # ascending row gather and measured 1.40 ms vs the gather's tens of
-    # ms at 2^21 pairs on v5e (the round-4 MXU one-hot kernel it
-    # replaces lost its A/B at +6.5 ms end-to-end; v2 wins it ~10x).
-    # A per-frame span check falls back to the XLA gather via lax.cond
-    # when any 2048-pair step's source-row span exceeds the window
-    # (long culled runs). False: always the XLA gather. TPU-only either
-    # way (the CPU spec keeps the pure-jnp gather).
-    expand_kernel: bool = True
     # Depth-presort binning: sort the N gaussians by depth once (cheap —
     # N << P pairs), expand pairs in depth order, then bin with a
     # TILE-ONLY single-key sort (stability preserves the depth order
@@ -133,55 +118,12 @@ class RasterConfig:
     # pass and the dominant radix sort; non-covering splats evaluate to
     # alpha < alpha_min in the compositor and are skipped, so with
     # alpha-aware extents (extent_sigma=0) the image is pixel-identical.
-    # Compositing reads each group range once per member tile (more DMA);
+    # Compositing reads each group range once per member tile (more reads);
     # profitable when the frame is sort-bound (1M+ gaussians). 1 = off.
     # Composes with exact_tile_test (group-cell coverage masks). Works on
     # the distributed row-strip path when each device's strip covers
     # whole group rows (rows-per-device % tile_group == 0).
     tile_group: int = 1
-    # Row-bucket SEGMENTED binning (round 5): partition the pair table
-    # into this many tile-row buckets (slot space = R chunk-aligned
-    # segments), place pairs directly into their bucket with the
-    # segmented stream kernel (per-bucket offsets from a closed-form
-    # (R, N) count matrix + the Pallas row scan — no extra pass over P),
-    # and run the 12-operand radix sort as a BATCHED (R, cap) 2D sort.
-    # XLA's 1D radix at 2M+ pairs is strongly superlinear (BASELINE.md
-    # sort curve); the batched sort over R segments cuts it several-fold
-    # while the concatenation of per-bucket sorted runs (buckets are
-    # whole group rows, ascending) is exactly the global (tile, depth)
-    # order: every tile's table slice is BIT-identical to the flat
-    # path's (tests/test_rowseg.py), and images agree to compositing-
-    # reassociation ulp (ranges land at different offsets mod the
-    # rasterizer chunk, re-bracketing the transmittance scan). Per-bucket
-    # capacity = pair_capacity / R (rounded up to the expand-kernel
-    # chunk); per-bucket overflow is counted into the same counter.
-    # Requires the fused-key stream path (TPU); 1 = off (flat sort).
-    # Skewed scenes need capacity covering the LARGEST bucket's demand
-    # (the capacity probes measure per-bucket maxima when this is on).
-    rowseg_buckets: int = 1
-    # Static bucket boundaries for rowseg_buckets, as (R+1,) ascending
-    # LOCAL group-row indices (bounds[0] = 0, bounds[-1] >= the strip's
-    # group rows). Real scenes concentrate pairs in central tile rows
-    # (measured [156k..478k] per-bucket demand at R=6 equal rows on the
-    # uniform 1M scene), which breaks both the equal per-bucket capacity
-    # and the stream-placement window span; DEMAND-BALANCED boundaries
-    # (probe per-row demand once, then binning.balance_bounds) keep
-    # every bucket near total/R. Empty = equal row split.
-    rowseg_bounds: tuple = ()
-    # Exact reference break semantics in the INFERENCE (non-differentiated)
-    # Pallas forward: a pixel freezes its transmittance at the first
-    # contributor whose post-blend T would drop below transmittance_eps,
-    # BEFORE blending it (reference codelets.cpp:405-408). With False, the
-    # inference kernel replaces the per-pixel stop tracking (trigger
-    # detection, transmittance freeze, stopped mask — ~20% of the VPU
-    # passes per chunk) with a single weight gate test_t >= eps, which by
-    # monotonicity of the transmittance excludes exactly the same pairs:
-    # the COLOUR channels match the strict kernel bit-for-bit; only the
-    # alpha channel (and a non-black background's weight) decays past the
-    # strict frozen value, bounded by transmittance_eps/(1 - alpha_clamp)
-    # (tests/test_pallas_rasterize.py asserts both). Training always uses
-    # strict semantics (the backward replay depends on trigger positions).
-    strict_termination: bool = True
     # Cap the SH band actually evaluated (-1 = the model's full degree).
     # Training schedules raise this progressively (standard 3DGS: one band
     # per 1000 iterations) — it is static, so each bump recompiles once.
@@ -225,11 +167,11 @@ class RuntimeConfig:
     """Runtime behaviour knobs, the analogue of the reference RuntimeConfig
     (include/ipu/ipu_utils.hpp:174-183). numIpus/numReplicas become the
     device mesh shape; saveExe/loadExe become the persistent XLA compilation
-    cache; useIpuModel becomes the CPU-interpret path.
+    cache; useIpuModel becomes the CPU path (kernels interpreted).
     """
 
     num_devices: int = 1
-    exe_name: str = "tpu_splatter"
+    exe_name: str = "gsplat"
     use_cpu_model: bool = False  # analogue of useIpuModel
     compile_cache_dir: str = ""  # analogue of saveExe/loadExe
     compile_only: bool = False

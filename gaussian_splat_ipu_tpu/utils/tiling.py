@@ -1,6 +1,6 @@
 """Tiled framebuffer model: image <-> tile coordinate algebra.
 
-TPU-native counterpart of the reference TiledFramebuffer
+Counterpart of the reference TiledFramebuffer
 (include/tileMapping/tile_config.hpp:19-139). The reference pins one 32x20
 pixel region per IPU tile and routes gaussians between neighbouring tiles
 with greedy Manhattan steps (getBestDirection, tile_config.hpp:92-110).

@@ -2,7 +2,7 @@
 
 Each process contributes 4 virtual CPU devices to an 8-device global mesh
 via jax.distributed + gloo CPU collectives, renders a deterministic scene
-with the SAME shard_map code used on TPU pods, and prints the replicated
+with the SAME shard_map code used across GPU hosts, and prints the replicated
 image mean. Usage: python _multihost_child.py <pid> <nproc> <coordinator>.
 """
 

@@ -126,87 +126,6 @@ def test_fused_key_matches_exact_sort():
                                   np.asarray(b_exact.tile_ends))
 
 
-def test_expand_kernel_matches_gather(monkeypatch):
-    """The Pallas stream-expand kernel (interpret mode on CPU) must
-    reproduce the gather expansion — including zero-coverage gaussians
-    interleaved with covered ones, the zeroed pad tail, gradient flow
-    through the shared custom VJP, and the overflow regime. -0.0 may
-    normalise to +0.0 through the MXU path (== equality, identical
-    arithmetic downstream), hence array_equal not bitwise."""
-    import dataclasses
-
-    import jax
-
-    monkeypatch.setattr(binning, "FORCE_EXPAND_KERNEL", True)
-    rng = np.random.default_rng(13)
-    n = 96
-    xy = rng.uniform(-10, [138, 74], (n, 2)).astype(np.float32)  # some
-    # offscreen -> zero-coverage gaussians interleave with covered ones
-    depth = rng.uniform(0.5, 9.0, n).astype(np.float32)
-    s = make_splats(xy.tolist(), [3.0] * n, depth=depth.tolist())
-    cfg_g = dataclasses.replace(CFG, expand_kernel=False)
-    a = binning.bin_splats(s, cfg_g)
-    b = binning.bin_splats(s, CFG)
-    np.testing.assert_array_equal(np.asarray(a.features),
-                                  np.asarray(b.features))
-    np.testing.assert_array_equal(np.asarray(a.pair_gid),
-                                  np.asarray(b.pair_gid))
-    np.testing.assert_array_equal(np.asarray(a.tile_starts),
-                                  np.asarray(b.tile_starts))
-    np.testing.assert_array_equal(np.asarray(a.tile_ends),
-                                  np.asarray(b.tile_ends))
-    assert int(a.num_pairs) == int(b.num_pairs)
-
-    # Gradients: identical custom VJP on both strategies.
-    def loss_with(cfg):
-        def f(opacity):
-            bb = binning.bin_splats(s._replace(opacity=opacity), cfg)
-            return jnp.sum(bb.features[binning.FEAT_OPACITY] ** 2)
-        return jax.grad(f)(s.opacity)
-
-    np.testing.assert_array_equal(np.asarray(loss_with(cfg_g)),
-                                  np.asarray(loss_with(CFG)))
-
-    # Overflow regime: both strategies degrade identically (counted).
-    tiny_g = dataclasses.replace(CFG, pair_capacity=32,
-                                 expand_kernel=False)
-    tiny_k = dataclasses.replace(tiny_g, expand_kernel=True)
-    a2 = binning.bin_splats(s, tiny_g)
-    b2 = binning.bin_splats(s, tiny_k)
-    assert int(a2.overflow) == int(b2.overflow) > 0
-    np.testing.assert_array_equal(np.asarray(a2.features),
-                                  np.asarray(b2.features))
-
-
-def test_expand_kernel_span_fallback(monkeypatch):
-    """A scene with a culled run longer than the expand window must take
-    the gather fallback branch (span check) and still bin correctly."""
-    import dataclasses
-
-    from gaussian_splat_ipu_tpu.render.kernels import expand as expand_mod
-
-    monkeypatch.setattr(binning, "FORCE_EXPAND_KERNEL", True)
-    n = expand_mod.WIN + 700  # culled run longer than any window
-    xy = [[16.0, 16.0]] + [[-500.0, -500.0]] * (n - 2) + [[48.0, 16.0]]
-    depth = [2.0] + [1.0] * (n - 2) + [3.0]
-    s = make_splats(xy, [2.0] * n, depth=depth)
-    span = int(expand_mod.max_subblock_span(
-        *(lambda b: (b.pair_gid, n))(
-            binning.bin_splats(s, dataclasses.replace(
-                CFG, expand_kernel=False)))))
-    del span  # (sanity: the interesting span is pre-sort, checked below)
-    a = binning.bin_splats(s, dataclasses.replace(CFG,
-                                                  expand_kernel=False))
-    b = binning.bin_splats(s, CFG)
-    np.testing.assert_array_equal(np.asarray(a.features),
-                                  np.asarray(b.features))
-    np.testing.assert_array_equal(np.asarray(a.tile_starts),
-                                  np.asarray(b.tile_starts))
-    # Both visible gaussians still land in their tiles.
-    counts = np.asarray(b.tile_ends - b.tile_starts)
-    assert counts.sum() == 2
-
-
 def test_fused_key_gradients_flow():
     """The fused table's custom VJP scatter-adds cotangents per gaussian
     identically to the exact path's."""
@@ -380,8 +299,8 @@ def test_randomized_invariants_across_configs():
             assert 0 <= npairs <= p, tag
             assert int(out.overflow) >= 0, tag
 
-            # Pad tail renders invisible. features is (NUM_FEATURES, P)
-            # column-major for the kernel's chunked DMA.
+            # Pad tail renders invisible. features is feature-major
+            # (TABLE_ROWS, P): each feature row is contiguous along pairs.
             feats = np.asarray(out.features)
             gid = np.asarray(out.pair_gid)
             pad_rows = gid >= n

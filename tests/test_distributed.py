@@ -88,7 +88,7 @@ class TestShardedRender:
 
 class TestExchangeModes:
     """The per-destination all_to_all exchange (default) vs the all_gather
-    fallback — the TPU-native replacement for the reference's bounded
+    fallback — the replacement for the reference's bounded
     lattice channels (src/splat/edge_builder.cpp:35-84)."""
 
     def test_all_to_all_matches_all_gather(self):
@@ -267,7 +267,7 @@ class TestShardedTileGroup:
                                    np.asarray(ref.image), atol=1e-5)
 
     def test_winner_config_720p_8dev_matches_single(self):
-        """The campaign-winner config (tile_group=2 + exact_tile_test)
+        """A grouped config (tile_group=2 + exact_tile_test)
         at the flagship 1280x720 geometry on an 8-device mesh (45 tile
         rows -> 6-row group-aligned strips + phantom tail) reproduces
         the single-device render (VERDICT r4 #5 'Done' criterion).
@@ -335,51 +335,3 @@ class TestShardedTileGroup:
                 c = f2[:10, s2[li]:e2[li]]
                 assert a.shape == c.shape and (a == c).all(), \
                     f"tile {t} strip-vs-full mismatch"
-
-
-class TestShardedRowseg:
-    def test_rowseg_strips_match_full_grid_flat(self):
-        """Row-bucket segmented binning on 2-device strips: every
-        covered tile's table slice is BIT-identical to full-grid FLAT
-        binning (the segmented layout differs, the per-tile pair
-        content and order must not)."""
-        import dataclasses
-
-        from gaussian_splat_ipu_tpu.render import binning
-        from gaussian_splat_ipu_tpu.render.projection import (
-            project_gaussians)
-
-        binning.FORCE_EXPAND_KERNEL = True
-        try:
-            model, camera = _scene(seed=11, n=384)
-            cfg = RasterConfig(image_width=1280, image_height=720,
-                               pair_capacity=1 << 13,
-                               max_chunks_per_tile=8,
-                               tile_group=2, exact_tile_test=True)
-            sp = project_gaussians(model, camera, cfg)
-            full = binning.bin_splats(sp, cfg)
-            f1 = np.asarray(full.features)
-            s1 = np.asarray(full.tile_starts)
-            e1 = np.asarray(full.tile_ends)
-            rows = distributed._rows_per_device(cfg, 2)
-            cfg_seg = dataclasses.replace(cfg, rowseg_buckets=4)
-            ntx = cfg.tiles_x
-            for dev in range(2):
-                row_lo = dev * rows
-                bb = binning.bin_splats(sp, cfg_seg, row_lo=row_lo,
-                                        num_rows=rows,
-                                        pair_capacity=cfg.pair_capacity)
-                f2 = np.asarray(bb.features)
-                s2 = np.asarray(bb.tile_starts)
-                e2 = np.asarray(bb.tile_ends)
-                for li in range(rows * ntx):
-                    r = row_lo + li // ntx
-                    if r >= cfg.tiles_y:
-                        continue
-                    t = r * ntx + li % ntx
-                    a = f1[:10, s1[t]:e1[t]]
-                    c = f2[:10, s2[li]:e2[li]]
-                    assert a.shape == c.shape and (a == c).all(), \
-                        f"tile {t} rowseg-strip-vs-full mismatch"
-        finally:
-            binning.FORCE_EXPAND_KERNEL = False

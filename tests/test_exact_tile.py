@@ -158,39 +158,3 @@ def test_decode_wide_unmasked_footprints():
         jnp.zeros((4,), jnp.int32), r)
     assert [int(v) for v in tx] == [100, 131, 100, 105]
     assert [int(v) for v in ty] == [200, 200, 201, 217]
-
-
-def test_coverage_kernel_matches_xla_loop():
-    """The Pallas coverage-mask kernel (render/kernels/coverage.py,
-    interpret mode on CPU) reproduces the XLA fori_loop masks bit-for-
-    bit: same clamps, same q slack, per-block dy-row skipping included
-    (footprints of every size up to and beyond the 8x8 testable
-    window)."""
-    import jax
-    import numpy as np
-
-    from gaussian_splat_ipu_tpu.models.camera import Camera
-    from gaussian_splat_ipu_tpu.models.gaussians import GaussianModel
-    from gaussian_splat_ipu_tpu.render.projection import project_gaussians
-
-    model = GaussianModel.random(jax.random.PRNGKey(11), 3000, extent=1.0)
-    bb = np.array([1.0, 1.0, 1.0], np.float32)
-    cam = Camera.orbit(-bb, bb, float(np.radians(40.0)), 640 / 360,
-                       rot_y_deg=75.0)
-    cfg = RasterConfig(image_width=640, image_height=360,
-                       pair_capacity=1 << 15, exact_tile_test=True)
-    sp = project_gaussians(model, cam, cfg)
-    x0, y0, nx, ny = binning.tile_ranges_of(sp, cfg)
-    ref = binning._coverage_masks(sp, cfg, x0, y0, nx, ny,
-                                  cell_w=cfg.tile_width,
-                                  cell_h=cfg.tile_height)
-    old = binning.FORCE_EXPAND_KERNEL
-    binning.FORCE_EXPAND_KERNEL = True
-    try:
-        got = binning._coverage_masks_dispatch(
-            sp, cfg, x0, y0, nx, ny, cfg.tile_width, cfg.tile_height)
-    finally:
-        binning.FORCE_EXPAND_KERNEL = old
-    for a, b, name in zip(ref, got, ("testable", "mlo", "mhi", "count")):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
-                                      err_msg=name)

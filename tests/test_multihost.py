@@ -2,8 +2,8 @@
 
 Spawns two OS processes that bootstrap jax.distributed over localhost,
 form one 8-device global mesh (4 virtual CPU devices each), and run the
-SAME shard_map renderer used in-process — the code path a TPU pod takes
-across hosts. Their replicated result must agree with a single-process
+SAME shard_map renderer used in-process — the code path a multi-host GPU
+cluster takes. Their replicated result must agree with a single-process
 render of the identical scene.
 """
 
@@ -26,6 +26,21 @@ def _free_port() -> int:
     port = s.getsockname()[1]
     s.close()
     return port
+
+
+def _child_env(root: str) -> dict:
+    """Environment of a child process: the parent's, minus its device
+    flags, with the repo importable. Children pay full XLA CPU compiles,
+    so they share the suite's persistent cache
+    ($JAX_COMPILATION_CACHE_DIR, else the checkout's .jax_cache)."""
+    from gaussian_splat_ipu_tpu.runtime import engine
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    env[engine.CACHE_ENV] = engine.compile_cache_dir()
+    env["JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS"] = "2.0"
+    return env
 
 
 def _write_gaussian_ply(path, n=96, seed=0):
@@ -61,13 +76,7 @@ def test_two_process_sharded_scene_loading(tmp_path):
     _write_gaussian_ply(ply_path, n=96)
     file_size = os.path.getsize(ply_path)
     coord = f"127.0.0.1:{_free_port()}"
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
-    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
-    # Children pay full XLA CPU compiles; share a persistent cache
-    # so repeat suite runs skip them.
-    env["JAX_COMPILATION_CACHE_DIR"] = "/tmp/gsplat_test_cache"
-    env["JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS"] = "2.0"
+    env = _child_env(root)
     procs = [subprocess.Popen(
         [sys.executable, child, str(pid), "2", coord, ply_path],
         cwd=root, env=env, stdout=subprocess.PIPE,
@@ -124,13 +133,7 @@ def test_two_process_train_cli_end_to_end(tmp_path):
     out_ply = str(tmp_path / "trained.ply")
     _write_gaussian_ply(ply_path, n=96)
     coord = f"127.0.0.1:{_free_port()}"
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
-    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
-    # Children pay full XLA CPU compiles; share a persistent cache
-    # so repeat suite runs skip them.
-    env["JAX_COMPILATION_CACHE_DIR"] = "/tmp/gsplat_test_cache"
-    env["JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS"] = "2.0"
+    env = _child_env(root)
     procs = [subprocess.Popen(
         [sys.executable, child, str(pid), "2", coord, ply_path, out_ply],
         cwd=root, env=env, stdout=subprocess.PIPE,
@@ -172,13 +175,7 @@ def test_two_process_render_matches_single():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     child = os.path.join(root, "tests", "_multihost_child.py")
     coord = f"127.0.0.1:{_free_port()}"
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
-    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
-    # Children pay full XLA CPU compiles; share a persistent cache
-    # so repeat suite runs skip them.
-    env["JAX_COMPILATION_CACHE_DIR"] = "/tmp/gsplat_test_cache"
-    env["JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS"] = "2.0"
+    env = _child_env(root)
     procs = [subprocess.Popen(
         [sys.executable, child, str(pid), "2", coord],
         cwd=root, env=env, stdout=subprocess.PIPE,

@@ -1,7 +1,7 @@
-"""Pallas rasterize kernel vs the jnp spec and the dense oracle.
+"""Rasterize kernels vs the jnp spec and the dense oracle.
 
-Runs in interpret mode on the CPU mesh; the same kernel compiles for real
-TPU (exercised by bench.py / __graft_entry__.py on hardware).
+Runs the kernels in the Pallas interpreter on the CPU; the same kernels
+compile for the GPU (chip_smoke.py checks them there).
 """
 
 import numpy as np
@@ -82,34 +82,6 @@ def test_pallas_empty_scene():
                                                img[..., :3].shape),
                                atol=1e-6)
     np.testing.assert_allclose(img[..., 3], 0.0, atol=1e-6)
-
-
-@pytest.mark.slow
-def test_relaxed_termination_bounded_error():
-    """strict_termination=False drops the per-pixel break machinery; the
-    image deviation is bounded by the weight left at the strict stop point
-    (RasterConfig.strict_termination). Use a dense, high-opacity scene so
-    early termination actually engages."""
-    import dataclasses
-    model = GaussianModel.random(jax.random.PRNGKey(7), 600)
-    # Push opacities up so transmittance saturates within the range.
-    model = GaussianModel(model.means, model.log_scales + 0.5, model.quats,
-                          model.opacities + 4.0, model.sh)
-    cam = camera()
-    strict = np.asarray(render(model, cam, CFG, use_pallas=True).image)
-    fast_cfg = dataclasses.replace(CFG, strict_termination=False)
-    fast = np.asarray(render(model, cam, fast_cfg, use_pallas=True).image)
-    # Colour: the test_t gate excludes exactly the pairs the strict break
-    # does (monotone transmittance) — bit-comparable.
-    np.testing.assert_allclose(fast[..., :3], strict[..., :3], atol=1e-6)
-    # Alpha channel: the relaxed transmittance decays past the strict
-    # frozen value; bounded by eps/(1 - alpha_clamp) = 1e-2.
-    da = (fast[..., 3] - strict[..., 3])
-    assert da.min() >= -1e-6, f"alpha decreased: {da.min()}"
-    assert da.max() <= CFG.transmittance_eps / (1 - CFG.alpha_clamp) + 1e-6
-    # Termination must still engage (the scene is dense + opaque): the
-    # fast path must not have composited everything.
-    assert (strict[..., 3] > 0.99).any()
 
 
 @pytest.mark.slow

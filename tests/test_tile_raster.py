@@ -192,7 +192,7 @@ def test_render_depth_single_and_mixture():
     assert 2.0 < float(mean[cy, cx]) < 5.0
     assert float(var[cy, cx]) > 0.5
 
-    # Pallas interpret path agrees with the jnp spec.
+    # The kernel path (interpreted on the CPU) agrees with the jnp spec.
     m2, v2, a2 = render_depth(both, cam, cfg, use_pallas=True)
     np.testing.assert_allclose(np.asarray(m2), np.asarray(mean), atol=1e-4)
     np.testing.assert_allclose(np.asarray(v2), np.asarray(var), atol=1e-4)
